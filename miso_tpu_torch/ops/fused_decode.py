@@ -1,0 +1,295 @@
+"""Fused multi-level interp + concat + MLP decode (port of
+``miso_tpu/ops/pallas_decode.py::fused_interp_decode``).
+
+Three parts:
+
+  * :func:`fused_interp_decode_cuda`, the wrapper of the CUDA kernel
+    ``csrc/fused_interp_decode.cu``.  It validates its inputs, launches on
+    PyTorch's current stream, counts its launches in ``.launches`` and
+    raises on what the kernel does not take.  It never falls back.
+  * :func:`fused_interp_decode_plain`, ``multi_level_interpolate`` followed
+    by ``grid_decode``: the kernel's plain version, used for CPU tensors and
+    as the reference the kernel is held to.
+  * ``_FusedInterpDecode``, a ``torch.autograd.Function`` whose forward is
+    the kernel and whose backward, like the JAX version's ``_fused_jvp``,
+    recomputes the lerp and MLP with differentiable torch ops
+    (:func:`fused_interp_decode_backward`), so derivatives of any order work.
+
+:func:`fused_interp_decode` dispatches on the device of ``x``: CUDA tensors
+go through the kernel, CPU tensors through the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence
+
+import torch
+
+from miso_tpu_torch.ops.interp import grid_decode, multi_level_interpolate
+
+# Mirrors of the kernel's compile-time maxima (csrc/fused_interp_decode.cu),
+# checked against the library when it is loaded.
+MAX_LEVELS = 8
+MAX_LAYERS = 8
+MAX_WIDTH = 128
+THREADS = 64
+SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
+
+
+class _Level(ctypes.Structure):
+    _fields_ = [("grid", ctypes.c_void_p), ("size", ctypes.c_void_p),
+                ("dims", ctypes.c_int * 3)]
+
+
+class _FusedArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
+                ("ignore", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("n_levels", ctypes.c_int),
+                ("fdim", ctypes.c_int), ("n_layers", ctypes.c_int),
+                ("max_width", ctypes.c_int), ("w_floats", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int),
+                ("levels", _Level * MAX_LEVELS),
+                ("W", ctypes.c_void_p * MAX_LAYERS),
+                ("b", ctypes.c_void_p * MAX_LAYERS),
+                ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+                ("outp", ctypes.c_int * MAX_LAYERS),
+                ("woff", ctypes.c_int * MAX_LAYERS),
+                ("boff", ctypes.c_int * MAX_LAYERS)]
+
+
+def _round_up(v, m):
+    return (v + m - 1) // m * m
+
+
+def smem_layout(dims: Sequence[int]):
+    """Shared-memory layout of the kernel for MLP widths ``dims``.
+
+    Each layer's output width is zero-padded to a multiple of 16 (of 4 below
+    16); W[l] then b[l] are staged back to back; two activation buffers of
+    ``max(dims)`` floats per thread follow.  Returns (outp, woff, boff,
+    w_floats, max_width, smem_bytes).
+    """
+    outp = [_round_up(o, 16) if o >= 16 else _round_up(o, 4) for o in dims[1:]]
+    woff, boff, off = [], [], 0
+    for i, op in enumerate(outp):
+        woff.append(off)
+        off += dims[i] * op
+        boff.append(off)
+        off += op
+    max_width = max(dims)
+    return outp, woff, boff, off, max_width, (off + 2 * max_width * THREADS) * 4
+
+
+def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
+    """Raise on anything the kernel does not take; returns the MLP widths."""
+    if x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"the fused kernel is 3D only: x has shape {tuple(x.shape)}")
+    n_levels = len(grids)
+    if not 1 <= n_levels <= MAX_LEVELS:
+        raise ValueError(f"{n_levels} levels; the kernel takes 1..{MAX_LEVELS}")
+    if not 1 <= len(decoder_params) <= MAX_LAYERS:
+        raise ValueError(f"{len(decoder_params)} layers; the kernel takes 1..{MAX_LAYERS}")
+    fdim = grids[0].shape[-1]
+    named = [("x", x), ("bound", bound)]
+    named += [(f"grids[{l}]", g) for l, g in enumerate(grids)]
+    for i, (W, b) in enumerate(decoder_params):
+        if b is None:
+            raise ValueError(f"decoder layer {i} has no bias; the kernel needs one")
+        named += [(f"W[{i}]", W), (f"b[{i}]", b)]
+    if ignore_level is not None:
+        named.append(("ignore_level", ignore_level))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if tuple(bound.shape) != (3, 2):
+        raise ValueError(f"bound has shape {tuple(bound.shape)}, expected (3, 2)")
+    if ignore_level is not None and tuple(ignore_level.shape) != (n_levels,):
+        raise ValueError(f"ignore_level has shape {tuple(ignore_level.shape)}")
+    for l, g in enumerate(grids):
+        if g.ndim != 4 or g.shape[-1] != fdim:
+            raise ValueError(f"grids[{l}] has shape {tuple(g.shape)}; expected "
+                             f"(X, Y, Z, {fdim})")
+    if sizes is not None:
+        if len(sizes) != n_levels:
+            raise ValueError(f"{len(sizes)} sizes for {n_levels} levels")
+        for l, s in enumerate(sizes):
+            if s.dtype != torch.int32 or tuple(s.shape) != (3,):
+                raise TypeError(f"sizes[{l}] must be a (3,) int32 tensor")
+            if s.device != x.device or not s.is_contiguous():
+                raise ValueError(f"sizes[{l}] must be contiguous and on {x.device}")
+    dims = [n_levels * fdim]
+    for i, (W, b) in enumerate(decoder_params):
+        if W.ndim != 2 or W.shape[0] != dims[-1] or tuple(b.shape) != (W.shape[1],):
+            raise ValueError(f"decoder layer {i}: W {tuple(W.shape)}, b "
+                             f"{tuple(b.shape)} after width {dims[-1]}")
+        dims.append(W.shape[1])
+    if max(dims) > MAX_WIDTH:
+        raise ValueError(f"MLP widths {dims} exceed the kernel's maximum {MAX_WIDTH}")
+    smem = smem_layout(dims)[-1]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MLP widths {dims} need {smem} B of shared memory; "
+                         f"the kernel has {SMEM_LIMIT}")
+    return dims
+
+
+def pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims):
+    """The kernel's argument struct for validated inputs and output ``out``."""
+    outp, woff, boff, w_floats, max_width, smem = smem_layout(dims)
+    a = _FusedArgs()
+    a.x, a.bound, a.out = x.data_ptr(), bound.data_ptr(), out.data_ptr()
+    a.ignore = ignore_level.data_ptr() if ignore_level is not None else None
+    a.n, a.n_levels, a.fdim = x.shape[0], len(grids), grids[0].shape[-1]
+    a.n_layers, a.max_width, a.w_floats, a.smem_bytes = (
+        len(decoder_params), max_width, w_floats, smem)
+    for l, g in enumerate(grids):
+        a.levels[l].grid = g.data_ptr()
+        a.levels[l].size = sizes[l].data_ptr() if sizes is not None else None
+        a.levels[l].dims[:] = list(g.shape[:3])
+    for i, (W, b) in enumerate(decoder_params):
+        a.W[i], a.b[i] = W.data_ptr(), b.data_ptr()
+        a.outp[i], a.woff[i], a.boff[i] = outp[i], woff[i], boff[i]
+    a.dims[:len(dims)] = dims
+    return a
+
+
+@functools.cache
+def _library():
+    from miso_tpu_torch.ops._build import load_library
+    lib = load_library("fused_interp_decode")
+    lib.mtt_fused_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.mtt_fused_limits.restype = None
+    lib.mtt_error_string.argtypes = [ctypes.c_int]
+    lib.mtt_error_string.restype = ctypes.c_char_p
+    lib.mtt_fused_interp_decode.argtypes = [ctypes.POINTER(_FusedArgs),
+                                            ctypes.c_int, ctypes.c_void_p]
+    lib.mtt_fused_interp_decode.restype = ctypes.c_int
+    limits = (ctypes.c_int * 4)()
+    lib.mtt_fused_limits(limits)
+    if tuple(limits) != (MAX_LEVELS, MAX_LAYERS, MAX_WIDTH, THREADS):
+        raise RuntimeError(f"kernel limits {tuple(limits)} differ from the "
+                           "wrapper's mirror of them")
+    return lib
+
+
+def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
+                             bound: torch.Tensor, decoder_params,
+                             sizes: Optional[Sequence[torch.Tensor]] = None,
+                             ignore_level: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """Launch the CUDA kernel: (N, 3) float32 points -> (N, out) float32.
+
+    Raises (and never falls back) on a non-CUDA tensor, d != 3, a non-f32
+    dtype, a missing bias, widths above the kernel's maxima and
+    non-contiguous inputs.  No autograd: see :func:`fused_interp_decode`.
+    """
+    dims = _check_args(grids, x, bound, decoder_params, sizes, ignore_level)
+    if not x.is_cuda:
+        raise ValueError(f"fused_interp_decode_cuda needs CUDA tensors, got {x.device}")
+    lib = _library()
+    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+    a = pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code = lib.mtt_fused_interp_decode(ctypes.byref(a), x.device.index,
+                                       ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError("fused_interp_decode kernel launch failed: "
+                           + lib.mtt_error_string(code).decode())
+    fused_interp_decode_cuda.launches += 1
+    return out
+
+
+fused_interp_decode_cuda.launches = 0
+
+
+def fused_interp_decode_plain(grids, x, bound, decoder_params, sizes=None,
+                              ignore_level=None):
+    """The kernel's plain PyTorch version: interpolate, concat, decode."""
+    feats = multi_level_interpolate(grids, x, bound, ignore_level, sizes)
+    return grid_decode(feats, x, decoder_params, True)
+
+
+def fused_interp_decode_backward(grad_out, grids, x, bound, decoder_params,
+                                 sizes=None, ignore_level=None,
+                                 create_graph=False):
+    """Cotangents of the fused op by a differentiable torch-op recompute.
+
+    The counterpart of the JAX version's ``_fused_jvp``: the lerp and MLP are
+    recomputed through ``ops/interp.py`` and ``ops/mlp.py`` and differentiated
+    with ``torch.autograd.grad``.  Inputs that do not require grad get a local
+    leaf.  With ``create_graph`` the result is itself differentiable (grad^2).
+
+    Returns (d_x, (d_grid per level), ((d_W, d_b) per layer)).
+    """
+    with torch.enable_grad():
+        def leaf(t):
+            return t if t.requires_grad else t.detach().requires_grad_()
+
+        x_ = leaf(x)
+        grids_ = [leaf(g) for g in grids]
+        params_ = [(leaf(W), leaf(b)) for W, b in decoder_params]
+        flat = [t for pair in params_ for t in pair]
+        out = fused_interp_decode_plain(grids_, x_, bound, params_, sizes,
+                                        ignore_level)
+        grads = torch.autograd.grad(out, [x_, *grids_, *flat], grad_out,
+                                    create_graph=create_graph, allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, [x_, *grids_, *flat])]
+    n = len(grids)
+    g_flat = grads[1 + n:]
+    return grads[0], tuple(grads[1:1 + n]), tuple(zip(g_flat[0::2], g_flat[1::2]))
+
+
+class _FusedInterpDecode(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: differentiable torch-op recompute."""
+
+    @staticmethod
+    def forward(ctx, x, bound, ignore_level, sizes, n_levels, *tensors):
+        grids = tensors[:n_levels]
+        flat = tensors[n_levels:]
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        out = fused_interp_decode_cuda(grids, x, bound, params, sizes, ignore_level)
+        ctx.save_for_backward(x, bound, *tensors)
+        ctx.n_levels = n_levels
+        ctx.sizes = sizes
+        ctx.ignore_level = ignore_level
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, bound, *tensors = ctx.saved_tensors
+        n = ctx.n_levels
+        grids = tensors[:n]
+        flat = tensors[n:]
+        params = tuple(zip(flat[0::2], flat[1::2]))
+        gx, g_grids, g_params = fused_interp_decode_backward(
+            grad_out, grids, x, bound, params, ctx.sizes, ctx.ignore_level,
+            create_graph=torch.is_grad_enabled())
+        g_flat = [g for pair in g_params for g in pair]
+        return (gx, None, None, None, None, *g_grids, *g_flat)
+
+
+def fused_interp_decode(grids: Sequence[torch.Tensor], x: torch.Tensor,
+                        bound: torch.Tensor, decoder_params,
+                        sizes: Optional[Sequence[torch.Tensor]] = None,
+                        ignore_level: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Multi-level trilinear interp + concat + MLP decode, fused.
+
+    Drop-in for ``grid_decode(multi_level_interpolate(...))`` on the
+    pos_invariant path.  CUDA tensors run the kernel (differentiable to any
+    order through the recompute backward); CPU tensors run the plain version.
+    """
+    if x.is_cuda:
+        flat = [t for pair in decoder_params for t in pair]
+        return _FusedInterpDecode.apply(x, bound, ignore_level,
+                                        None if sizes is None else tuple(sizes),
+                                        len(grids), *grids, *flat)
+    if x.device.type == "cpu":
+        return fused_interp_decode_plain(grids, x, bound, decoder_params, sizes,
+                                         ignore_level)
+    raise ValueError(f"fused_interp_decode runs on CUDA or CPU tensors, not {x.device}")
