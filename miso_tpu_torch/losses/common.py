@@ -86,6 +86,19 @@ def eikonal_loss_at(model_fn, coords, select_mask=None,
     return torch.sum(c * select_mask) / torch.clamp(torch.sum(select_mask), min=1.0)
 
 
+def eikonal_loss_uniform(model_fn, bound, n, generator=None, grad_method="autograd",
+                         finite_diff_eps=1e-2):
+    """Eikonal at n uniform random points in the bound.
+
+    The points are drawn from ``generator`` (a ``torch.Generator`` on the
+    bound's device, in place of the JAX key; the default generator when None),
+    so their stream differs from the JAX package's.
+    """
+    u = torch.rand((n, 3), generator=generator, dtype=bound.dtype, device=bound.device)
+    coords = bound[:, 0] + u * (bound[:, 1] - bound[:, 0])
+    return eikonal_loss_at(model_fn, coords, None, grad_method, finite_diff_eps)
+
+
 def feature_stability_loss(model, coords, mask_valid=None):
     """Drive interpolated stability to 1 at observed points, plus an L2
     regulariser on the stability grids."""

@@ -12,9 +12,13 @@ them): ``features.<l>``, ``stability.<l>``, ``decoder.<2i>`` (W_i, shape
 (in, out)) and ``decoder.<2i+1>`` (b_i), ``rot_corr``, ``trans_corr``.
 Buffers: ``Rwk``, ``twk``, ``bound``, ``ignore_level``, ``anchor_kf``.
 
-``decode_impl`` keeps the config value ``decoder.impl``: ``"xla"`` runs the
-plain interpolate-then-decode path, ``"pallas"`` the fused kernel
-(``ops/fused_decode.py``).  VM grids wait for a later slice.
+``decode_impl`` keeps the config value ``decoder.impl``: ``"xla"`` (the
+default) interpolates each level and then decodes, ``"pallas"`` runs the
+fused kernel (``ops/fused_decode.py``).  On the card the ``"xla"`` path, and
+``query_feature`` and ``query_stability``, go through the interp kernels
+(``ops/tiled_interp.py``) and the decode kernel (``ops/fused_decode.py::
+mlp_decode``); on the CPU through their plain versions.  VM grids wait for a
+later slice.
 """
 from __future__ import annotations
 
@@ -24,8 +28,9 @@ import torch
 from torch import nn
 
 from miso_tpu_torch.ops import interp, se3
-from miso_tpu_torch.ops.fused_decode import fused_interp_decode
+from miso_tpu_torch.ops.fused_decode import fused_interp_decode, mlp_decode
 from miso_tpu_torch.ops.mlp import mlp_init
+from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
 
 DECODE_IMPLS = ("xla", "pallas")
 
@@ -87,11 +92,13 @@ class GridNet(nn.Module):
     def query_feature(self, x: torch.Tensor) -> torch.Tensor:
         """Multi-level interp and concat (regular grids)."""
         return interp.multi_level_interpolate(list(self.features), x, self.bound,
-                                              self.ignore_level)
+                                              self.ignore_level,
+                                              interpolate=grid_interpolate_dispatch)
 
     def query_stability(self, x: torch.Tensor) -> torch.Tensor:
         """Stability grids are never level-ignored."""
-        return interp.multi_level_interpolate(list(self.stability), x, self.bound)
+        return interp.multi_level_interpolate(list(self.stability), x, self.bound,
+                                              interpolate=grid_interpolate_dispatch)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         decoder = self.decoder_params
@@ -99,8 +106,8 @@ class GridNet(nn.Module):
                 and self.pos_invariant):
             return fused_interp_decode(list(self.features), x, self.bound, decoder,
                                        ignore_level=self.ignore_level)
-        feats = self.query_feature(x)
-        return interp.grid_decode(feats, x, decoder, self.pos_invariant)
+        return interp.grid_decode(self.query_feature(x), x, decoder,
+                                  self.pos_invariant, decode=mlp_decode)
 
     # --- poses ------------------------------------------------------------
     def updated_kf_poses(self, lock_mask: Optional[torch.Tensor] = None):

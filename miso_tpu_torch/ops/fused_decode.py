@@ -1,7 +1,8 @@
-"""Fused multi-level interp + concat + MLP decode (port of
-``miso_tpu/ops/pallas_decode.py::fused_interp_decode``).
+"""Fused multi-level interp + concat + MLP decode, and the MLP decode alone
+(ports of ``miso_tpu/ops/pallas_decode.py::fused_interp_decode`` and
+``pallas_decode``).
 
-Three parts:
+The fused op has three parts:
 
   * :func:`fused_interp_decode_cuda`, the wrapper of the CUDA kernel
     ``csrc/fused_interp_decode.cu``.  It validates its inputs, launches on
@@ -15,8 +16,14 @@ Three parts:
     recomputes the lerp and MLP with differentiable torch ops
     (:func:`fused_interp_decode_backward`), so derivatives of any order work.
 
-:func:`fused_interp_decode` dispatches on the device of ``x``: CUDA tensors
-go through the kernel, CPU tensors through the plain version.
+The decode op has the same three: :func:`mlp_decode_cuda` (kernel
+``csrc/mlp_decode.cu``, the MLP half of the fused kernel), its plain version
+:func:`mlp_decode_plain` (``ops/mlp.py::mlp_apply``) and ``_MlpDecode``,
+whose backward recomputes the MLP with torch ops as ``_decode_jvp`` does.
+
+:func:`fused_interp_decode` and :func:`mlp_decode` dispatch on the device of
+``x``: CUDA tensors go through the kernel, CPU tensors through the plain
+version.
 """
 from __future__ import annotations
 
@@ -27,9 +34,10 @@ from typing import Optional, Sequence
 import torch
 
 from miso_tpu_torch.ops.interp import grid_decode, multi_level_interpolate
+from miso_tpu_torch.ops.mlp import mlp_apply
 
-# Mirrors of the kernel's compile-time maxima (csrc/fused_interp_decode.cu),
-# checked against the library when it is loaded.
+# Mirrors of the kernels' compile-time maxima (csrc/mtt_mlp.cuh), checked
+# against each library when it is loaded.
 MAX_LEVELS = 8
 MAX_LAYERS = 8
 MAX_WIDTH = 128
@@ -42,20 +50,32 @@ class _Level(ctypes.Structure):
                 ("dims", ctypes.c_int * 3)]
 
 
-class _FusedArgs(ctypes.Structure):
-    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
-                ("ignore", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("n_levels", ctypes.c_int),
-                ("fdim", ctypes.c_int), ("n_layers", ctypes.c_int),
-                ("max_width", ctypes.c_int), ("w_floats", ctypes.c_int),
-                ("smem_bytes", ctypes.c_int),
-                ("levels", _Level * MAX_LEVELS),
+class _Mlp(ctypes.Structure):
+    _fields_ = [("n_layers", ctypes.c_int), ("max_width", ctypes.c_int),
+                ("w_floats", ctypes.c_int), ("smem_bytes", ctypes.c_int),
                 ("W", ctypes.c_void_p * MAX_LAYERS),
                 ("b", ctypes.c_void_p * MAX_LAYERS),
                 ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
                 ("outp", ctypes.c_int * MAX_LAYERS),
                 ("woff", ctypes.c_int * MAX_LAYERS),
                 ("boff", ctypes.c_int * MAX_LAYERS)]
+
+
+# The MLP's fields are anonymous: ``args.outp`` reads ``args.mlp.outp``.
+class _FusedArgs(ctypes.Structure):
+    _anonymous_ = ("mlp",)
+    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
+                ("ignore", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("n_levels", ctypes.c_int),
+                ("fdim", ctypes.c_int),
+                ("levels", _Level * MAX_LEVELS),
+                ("mlp", _Mlp)]
+
+
+class _DecodeArgs(ctypes.Structure):
+    _anonymous_ = ("mlp",)
+    _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("mlp", _Mlp)]
 
 
 def _round_up(v, m):
@@ -81,31 +101,57 @@ def smem_layout(dims: Sequence[int]):
     return outp, woff, boff, off, max_width, (off + 2 * max_width * THREADS) * 4
 
 
+def _check_tensors(named, device):
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, x on {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def _check_mlp(decoder_params, in_dim, device, bias_required):
+    """Raise on an MLP the kernels do not take; returns its widths."""
+    if not 1 <= len(decoder_params) <= MAX_LAYERS:
+        raise ValueError(f"{len(decoder_params)} layers; the kernel takes 1..{MAX_LAYERS}")
+    dims = [in_dim]
+    named = []
+    for i, (W, b) in enumerate(decoder_params):
+        if b is None and bias_required:
+            raise ValueError(f"decoder layer {i} has no bias; the kernel needs one")
+        if W.ndim != 2 or W.shape[0] != dims[-1] or (
+                b is not None and tuple(b.shape) != (W.shape[1],)):
+            raise ValueError(f"decoder layer {i}: W {tuple(W.shape)}, b "
+                             f"{None if b is None else tuple(b.shape)} after width "
+                             f"{dims[-1]}")
+        named.append((f"W[{i}]", W))
+        if b is not None:
+            named.append((f"b[{i}]", b))
+        dims.append(W.shape[1])
+    _check_tensors(named, device)
+    if max(dims) > MAX_WIDTH:
+        raise ValueError(f"MLP widths {dims} exceed the kernel's maximum {MAX_WIDTH}")
+    smem = smem_layout(dims)[-1]
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"MLP widths {dims} need {smem} B of shared memory; "
+                         f"the kernel has {SMEM_LIMIT}")
+    return dims
+
+
 def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
-    """Raise on anything the kernel does not take; returns the MLP widths."""
+    """Raise on anything the fused kernel does not take; returns the MLP widths."""
     if x.ndim != 2 or x.shape[1] != 3:
         raise ValueError(f"the fused kernel is 3D only: x has shape {tuple(x.shape)}")
     n_levels = len(grids)
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"{n_levels} levels; the kernel takes 1..{MAX_LEVELS}")
-    if not 1 <= len(decoder_params) <= MAX_LAYERS:
-        raise ValueError(f"{len(decoder_params)} layers; the kernel takes 1..{MAX_LAYERS}")
     fdim = grids[0].shape[-1]
     named = [("x", x), ("bound", bound)]
     named += [(f"grids[{l}]", g) for l, g in enumerate(grids)]
-    for i, (W, b) in enumerate(decoder_params):
-        if b is None:
-            raise ValueError(f"decoder layer {i} has no bias; the kernel needs one")
-        named += [(f"W[{i}]", W), (f"b[{i}]", b)]
     if ignore_level is not None:
         named.append(("ignore_level", ignore_level))
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernel takes float32 only")
-        if t.device != x.device:
-            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} is not contiguous")
+    _check_tensors(named, x.device)
     if tuple(bound.shape) != (3, 2):
         raise ValueError(f"bound has shape {tuple(bound.shape)}, expected (3, 2)")
     if ignore_level is not None and tuple(ignore_level.shape) != (n_levels,):
@@ -122,58 +168,62 @@ def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
                 raise TypeError(f"sizes[{l}] must be a (3,) int32 tensor")
             if s.device != x.device or not s.is_contiguous():
                 raise ValueError(f"sizes[{l}] must be contiguous and on {x.device}")
-    dims = [n_levels * fdim]
+    return _check_mlp(decoder_params, n_levels * fdim, x.device, bias_required=True)
+
+
+def _pack_mlp(m, decoder_params, dims):
+    outp, woff, boff, w_floats, max_width, smem = smem_layout(dims)
+    m.n_layers, m.max_width, m.w_floats, m.smem_bytes = (
+        len(decoder_params), max_width, w_floats, smem)
     for i, (W, b) in enumerate(decoder_params):
-        if W.ndim != 2 or W.shape[0] != dims[-1] or tuple(b.shape) != (W.shape[1],):
-            raise ValueError(f"decoder layer {i}: W {tuple(W.shape)}, b "
-                             f"{tuple(b.shape)} after width {dims[-1]}")
-        dims.append(W.shape[1])
-    if max(dims) > MAX_WIDTH:
-        raise ValueError(f"MLP widths {dims} exceed the kernel's maximum {MAX_WIDTH}")
-    smem = smem_layout(dims)[-1]
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"MLP widths {dims} need {smem} B of shared memory; "
-                         f"the kernel has {SMEM_LIMIT}")
-    return dims
+        m.W[i], m.b[i] = W.data_ptr(), None if b is None else b.data_ptr()
+        m.outp[i], m.woff[i], m.boff[i] = outp[i], woff[i], boff[i]
+    m.dims[:len(dims)] = dims
 
 
 def pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims):
-    """The kernel's argument struct for validated inputs and output ``out``."""
-    outp, woff, boff, w_floats, max_width, smem = smem_layout(dims)
+    """The fused kernel's argument struct for validated inputs and ``out``."""
     a = _FusedArgs()
     a.x, a.bound, a.out = x.data_ptr(), bound.data_ptr(), out.data_ptr()
     a.ignore = ignore_level.data_ptr() if ignore_level is not None else None
     a.n, a.n_levels, a.fdim = x.shape[0], len(grids), grids[0].shape[-1]
-    a.n_layers, a.max_width, a.w_floats, a.smem_bytes = (
-        len(decoder_params), max_width, w_floats, smem)
     for l, g in enumerate(grids):
         a.levels[l].grid = g.data_ptr()
         a.levels[l].size = sizes[l].data_ptr() if sizes is not None else None
         a.levels[l].dims[:] = list(g.shape[:3])
-    for i, (W, b) in enumerate(decoder_params):
-        a.W[i], a.b[i] = W.data_ptr(), b.data_ptr()
-        a.outp[i], a.woff[i], a.boff[i] = outp[i], woff[i], boff[i]
-    a.dims[:len(dims)] = dims
+    _pack_mlp(a.mlp, decoder_params, dims)
     return a
 
 
 @functools.cache
-def _library():
+def _library(name: str = "fused_interp_decode"):
+    """Load (building if needed) ``csrc/<name>.cu``, one of the MLP kernels."""
     from miso_tpu_torch.ops._build import load_library
-    lib = load_library("fused_interp_decode")
-    lib.mtt_fused_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.mtt_fused_limits.restype = None
+    lib = load_library(name)
+    lib.mtt_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.mtt_limits.restype = None
     lib.mtt_error_string.argtypes = [ctypes.c_int]
     lib.mtt_error_string.restype = ctypes.c_char_p
-    lib.mtt_fused_interp_decode.argtypes = [ctypes.POINTER(_FusedArgs),
-                                            ctypes.c_int, ctypes.c_void_p]
-    lib.mtt_fused_interp_decode.restype = ctypes.c_int
+    launcher, args = {"fused_interp_decode": ("mtt_fused_interp_decode", _FusedArgs),
+                      "mlp_decode": ("mtt_mlp_decode", _DecodeArgs)}[name]
+    getattr(lib, launcher).argtypes = [ctypes.POINTER(args), ctypes.c_int,
+                                       ctypes.c_void_p]
+    getattr(lib, launcher).restype = ctypes.c_int
     limits = (ctypes.c_int * 4)()
-    lib.mtt_fused_limits(limits)
+    lib.mtt_limits(limits)
     if tuple(limits) != (MAX_LEVELS, MAX_LAYERS, MAX_WIDTH, THREADS):
         raise RuntimeError(f"kernel limits {tuple(limits)} differ from the "
                            "wrapper's mirror of them")
     return lib
+
+
+def _launch(lib, launcher, args, device, what):
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = getattr(lib, launcher)(ctypes.byref(args), device.index,
+                                  ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"{what} kernel launch failed: "
+                           + lib.mtt_error_string(code).decode())
 
 
 def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
@@ -193,12 +243,7 @@ def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
     lib = _library()
     out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
     a = pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    code = lib.mtt_fused_interp_decode(ctypes.byref(a), x.device.index,
-                                       ctypes.c_void_p(stream))
-    if code != 0:
-        raise RuntimeError("fused_interp_decode kernel launch failed: "
-                           + lib.mtt_error_string(code).decode())
+    _launch(lib, "mtt_fused_interp_decode", a, x.device, "fused_interp_decode")
     fused_interp_decode_cuda.launches += 1
     return out
 
@@ -293,3 +338,81 @@ def fused_interp_decode(grids: Sequence[torch.Tensor], x: torch.Tensor,
         return fused_interp_decode_plain(grids, x, bound, decoder_params, sizes,
                                          ignore_level)
     raise ValueError(f"fused_interp_decode runs on CUDA or CPU tensors, not {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# The MLP decode alone (port of pallas_decode / _decode_kernel).
+# ---------------------------------------------------------------------------
+
+def mlp_decode_cuda(decoder_params, x: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel ``csrc/mlp_decode.cu``: (N, F_in) float32 ->
+    (N, out) float32, ReLU between layers, a None bias taken as zeros.
+
+    Raises (and never falls back) on a non-CUDA tensor, a non-f32 dtype,
+    widths above the kernel's maxima and non-contiguous inputs.  No
+    autograd: see :func:`mlp_decode`.
+    """
+    if x.ndim != 2:
+        raise ValueError(f"x must be (N, F_in), got shape {tuple(x.shape)}")
+    _check_tensors([("x", x)], x.device)
+    dims = _check_mlp(decoder_params, x.shape[1], x.device, bias_required=False)
+    if not x.is_cuda:
+        raise ValueError(f"mlp_decode_cuda needs CUDA tensors, got {x.device}")
+    lib = _library("mlp_decode")
+    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+    a = _DecodeArgs()
+    a.x, a.out, a.n = x.data_ptr(), out.data_ptr(), x.shape[0]
+    _pack_mlp(a.mlp, decoder_params, dims)
+    _launch(lib, "mtt_mlp_decode", a, x.device, "mlp_decode")
+    mlp_decode_cuda.launches += 1
+    return out
+
+
+mlp_decode_cuda.launches = 0
+
+
+def mlp_decode_plain(decoder_params, x: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain PyTorch version: ``ops/mlp.py::mlp_apply``."""
+    return mlp_apply(decoder_params, x)
+
+
+class _MlpDecode(torch.autograd.Function):
+    """Forward: the CUDA kernel.  Backward: the MLP recomputed with torch ops
+    and differentiated (``_decode_jvp``'s counterpart), so the result is
+    itself differentiable when the backward runs with ``create_graph``."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        ctx.save_for_backward(x, *flat)
+        return mlp_decode_cuda(tuple(zip(flat[0::2], flat[1::2])), x)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        x, *flat = ctx.saved_tensors
+        inputs = [x, *flat]
+        wrt = [i for i, t in enumerate(inputs)
+               if t is not None and ctx.needs_input_grad[i]]
+        grads = [None] * len(inputs)
+        if wrt:
+            with torch.enable_grad():
+                out = mlp_apply(tuple(zip(flat[0::2], flat[1::2])), x)
+                got = torch.autograd.grad(out, [inputs[i] for i in wrt], grad_out,
+                                          create_graph=torch.is_grad_enabled(),
+                                          allow_unused=True)
+            for i, g in zip(wrt, got):
+                grads[i] = torch.zeros_like(inputs[i]) if g is None else g
+        return tuple(grads)
+
+
+def mlp_decode(decoder_params, x: torch.Tensor) -> torch.Tensor:
+    """ReLU MLP decode, a drop-in for ``ops/mlp.py::mlp_apply``.
+
+    CUDA tensors run the kernel (differentiable to any order through the
+    recompute backward); CPU tensors run the plain version.
+    """
+    if x.is_cuda:
+        flat = [t for pair in decoder_params for t in pair]
+        return _MlpDecode.apply(x.contiguous(), *flat)
+    if x.device.type == "cpu":
+        return mlp_decode_plain(decoder_params, x)
+    raise ValueError(f"mlp_decode runs on CUDA or CPU tensors, not {x.device}")

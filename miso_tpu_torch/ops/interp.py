@@ -19,7 +19,7 @@ world axis k, as in the JAX package.
 from __future__ import annotations
 
 import itertools
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -141,30 +141,35 @@ def _gather_lerp_channels(grid, lin, w, F):
 def multi_level_interpolate(grids: Sequence[torch.Tensor], x: torch.Tensor,
                             bound: torch.Tensor,
                             ignore_level: Optional[torch.Tensor] = None,
-                            sizes: Optional[Sequence[torch.Tensor]] = None
-                            ) -> torch.Tensor:
+                            sizes: Optional[Sequence[torch.Tensor]] = None,
+                            interpolate: Callable = None) -> torch.Tensor:
     """Interpolate every level and concatenate along channels.
 
     ``ignore_level`` is an optional (L,) float/bool tensor; ignored levels
     contribute zeros.  ``sizes`` optionally gives each level's logical
-    size (see :func:`grid_interpolate`).
+    size (see :func:`grid_interpolate`).  ``interpolate(grid, x, bound,
+    size)`` interpolates one level; :func:`grid_interpolate` when None.
     """
+    interpolate = interpolate or grid_interpolate
     feats = []
     for level, g in enumerate(grids):
-        f = grid_interpolate(g, x, bound,
-                             size=None if sizes is None else sizes[level])
+        f = interpolate(g, x, bound, None if sizes is None else sizes[level])
         if ignore_level is not None:
             f = f * (1.0 - ignore_level[level].to(f.dtype))
         feats.append(f)
     return torch.cat(feats, dim=-1)
 
 
-def grid_decode(feats, x, decoder_params=None, pos_invariant=True):
-    """Concat-levels features -> decoder MLP; None decoder is the identity."""
+def grid_decode(feats, x, decoder_params=None, pos_invariant=True,
+                decode: Callable = None):
+    """Concat-levels features -> decoder MLP; None decoder is the identity.
+
+    ``decode(params, inputs)`` runs the MLP; :func:`ops.mlp.mlp_apply` when
+    None."""
     if decoder_params is None:
         return feats
     inputs = feats if pos_invariant else torch.cat([feats, x], dim=-1)
-    return mlp_apply(decoder_params, inputs)
+    return (decode or mlp_apply)(decoder_params, inputs)
 
 
 def vertex_positions(spatial: Sequence[int], bound: torch.Tensor) -> torch.Tensor:

@@ -1,0 +1,271 @@
+"""Single-level trilinear interpolation on the card (port of
+``miso_tpu/ops/pallas_interp.py``: ``tiled_grid_interpolate`` and
+``sorted_tiled_interp``).
+
+The TPU op bins points into (8, 16, 16)-cell tiles, sorts them and returns
+its output in tile-sorted order, because the TPU cannot gather per point.
+The function it computes is ``ops/interp.py::grid_interpolate``
+(align_corners=False, zeros padding, channel-last grids) and that is what
+this module computes, in the caller's point order:
+
+  * :func:`grid_interpolate_cuda` and :func:`grid_interpolate_grad_cuda`,
+    the wrappers of the CUDA kernels in ``csrc/grid_interp.cu`` (forward;
+    grid gradient by atomics plus, when asked, the points' gradient).  They
+    validate their inputs, launch on PyTorch's current stream, count their
+    launches in ``.launches`` and raise on what the kernels do not take.
+    They never fall back.
+  * :func:`grid_interpolate_plain` (``ops/interp.py::grid_interpolate``) and
+    :func:`grid_interpolate_grad_plain` (an ``index_add_`` scatter plus the
+    analytic points' gradient): the kernels' plain versions, used for CPU
+    tensors and as the reference the kernels are held to.
+  * ``_GridInterp``, a ``torch.autograd.Function``.  Its forward is the
+    kernel.  Its backward dispatches on the order of the derivative, not on
+    failure:
+
+      - first order (``torch.is_grad_enabled()`` false in the backward: a
+        plain ``backward`` or ``autograd.grad``) launches the grad kernel;
+      - under ``create_graph=True`` (the autograd eikonal,
+        ``losses/common.py::eikonal_loss_at``) the gradient must itself be
+        differentiable, so it is recomputed through the plain, differentiable
+        ``ops/interp.py::grid_interpolate`` and counted in
+        ``_GridInterp.recomputes``.  The fused op's backward
+        (``ops/fused_decode.py``) recomputes the same way.
+
+:func:`grid_interpolate_dispatch` sends CUDA tensors through ``_GridInterp``
+and CPU tensors to the plain version; ``GridNet`` hands it to
+``ops/interp.py::multi_level_interpolate`` as the per-level interpolation.  Two faults of the TPU op are not carried over: it breaks for
+F > 8 (``fpad=8``) and its backward gives zeros for the points' gradient.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import itertools
+from typing import Optional, Sequence
+
+import torch
+
+from miso_tpu_torch.ops import interp
+
+
+class _InterpArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
+                ("grid", ctypes.c_void_p), ("size", ctypes.c_void_p),
+                ("g", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("gx", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("dims", ctypes.c_int * 3), ("fdim", ctypes.c_int),
+                ("vec4", ctypes.c_int)]
+
+
+@functools.cache
+def _library():
+    from miso_tpu_torch.ops._build import load_library
+    lib = load_library("grid_interp")
+    lib.mtt_error_string.argtypes = [ctypes.c_int]
+    lib.mtt_error_string.restype = ctypes.c_char_p
+    for name in ("mtt_grid_interp_forward", "mtt_grid_interp_backward"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _check(grid, x, bound, size, g=None):
+    """Raise on anything the kernels do not take."""
+    if x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"the interp kernels are 3D only: x has shape {tuple(x.shape)}")
+    if grid.ndim != 4:
+        raise ValueError(f"grid has shape {tuple(grid.shape)}; expected (X, Y, Z, F)")
+    if tuple(bound.shape) != (3, 2):
+        raise ValueError(f"bound has shape {tuple(bound.shape)}, expected (3, 2)")
+    named = [("grid", grid), ("x", x), ("bound", bound)]
+    if g is not None:
+        if tuple(g.shape) != (x.shape[0], grid.shape[-1]):
+            raise ValueError(f"cotangent has shape {tuple(g.shape)}, expected "
+                             f"{(x.shape[0], grid.shape[-1])}")
+        named.append(("cotangent", g))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if size is not None:
+        if size.dtype != torch.int32 or tuple(size.shape) != (3,):
+            raise TypeError("size must be a (3,) int32 tensor")
+        if size.device != x.device or not size.is_contiguous():
+            raise ValueError(f"size must be contiguous and on {x.device}")
+    if not x.is_cuda:
+        raise ValueError(f"the interp kernels need CUDA tensors, got {x.device}")
+
+
+def _pack(grid, x, bound, size, out, g=None, gx=None):
+    a = _InterpArgs()
+    a.x, a.bound, a.grid, a.out = (x.data_ptr(), bound.data_ptr(), grid.data_ptr(),
+                                   out.data_ptr())
+    a.size = None if size is None else size.data_ptr()
+    a.g = None if g is None else g.data_ptr()
+    a.gx = None if gx is None else gx.data_ptr()
+    a.n = x.shape[0]
+    a.dims[:] = list(grid.shape[:3])
+    a.fdim = grid.shape[-1]
+    rows = [t for t in (grid, out, g) if t is not None]
+    a.vec4 = int(a.fdim % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
+    return a
+
+
+def _launch(name, a, device):
+    lib = _library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    code = getattr(lib, name)(ctypes.byref(a), device.index, ctypes.c_void_p(stream))
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed: "
+                           + lib.mtt_error_string(code).decode())
+
+
+def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tensor,
+                          size: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the forward kernel: (X, Y, Z, F) grid, (N, 3) points -> (N, F).
+
+    ``size`` is an optional (3,) int32 logical size for padded storage.  No
+    autograd: see :func:`grid_interpolate_dispatch`.
+    """
+    _check(grid, x, bound, size)
+    out = torch.empty((x.shape[0], grid.shape[-1]), dtype=torch.float32,
+                      device=x.device)
+    _launch("mtt_grid_interp_forward", _pack(grid, x, bound, size, out), x.device)
+    grid_interpolate_cuda.launches += 1
+    return out
+
+
+grid_interpolate_cuda.launches = 0
+
+
+def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
+                               bound: torch.Tensor, g: torch.Tensor,
+                               size: Optional[torch.Tensor] = None,
+                               need_x: bool = True):
+    """Launch the backward kernel for cotangent ``g`` (N, F).
+
+    Returns (d_grid (X, Y, Z, F), d_x (N, 3) or None when ``need_x`` is
+    false).  d_grid is scattered with atomics, so its float32 sums run in an
+    order that varies from run to run.
+    """
+    _check(grid, x, bound, size, g)
+    d_grid = torch.zeros_like(grid)
+    d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+           if need_x else None)
+    _launch("mtt_grid_interp_backward", _pack(grid, x, bound, size, d_grid, g, d_x),
+            x.device)
+    grid_interpolate_grad_cuda.launches += 1
+    return d_grid, d_x
+
+
+grid_interpolate_grad_cuda.launches = 0
+
+
+def grid_interpolate_plain(grid, x, bound, size=None):
+    """The forward kernel's plain version: ``ops/interp.py::grid_interpolate``."""
+    return interp.grid_interpolate(grid, x, bound, size)
+
+
+def corner_weight_derivatives(x, bound, spatial: Sequence[int], size=None):
+    """d w_c / d x_k of the lerp weights of ``corner_indices_and_weights``:
+    (3, 8, N), zero at corners outside the logical grid (zeros padding)."""
+    if size is not None:
+        size = torch.as_tensor(size, device=x.device)
+    axes = []
+    for k in range(3):
+        nk = float(spatial[k]) if size is None else size[k].to(x.dtype)
+        nk_i = int(spatial[k]) if size is None else size[k].to(torch.int64)
+        lo, hi = bound[k, 0], bound[k, 1]
+        u = (x[:, k] - lo) / (hi - lo) * nk - 0.5
+        i0f = torch.floor(u)
+        axes.append((i0f.to(torch.int64), u - i0f, nk_i, nk / (hi - lo)))
+    out = []
+    for k in range(3):
+        per_corner = []
+        for corner in itertools.product((0, 1), repeat=3):
+            d = None
+            ok = None
+            for j, (i0, fr, nk_i, scale) in enumerate(axes):
+                ik = i0 + corner[j]
+                ok_j = (ik >= 0) & (ik < nk_i)
+                ok = ok_j if ok is None else ok & ok_j
+                if j == k:
+                    wj = (scale if corner[j] else -scale) * torch.ones_like(fr)
+                else:
+                    wj = fr if corner[j] else 1.0 - fr
+                d = wj if d is None else d * wj
+            per_corner.append(d * ok.to(d.dtype))
+        out.append(torch.stack(per_corner))
+    return torch.stack(out)
+
+
+def grid_interpolate_grad_plain(grid, x, bound, g, size=None, need_x=True):
+    """The backward kernel's plain version: the grid's gradient by an
+    ``index_add_`` scatter of the corner-weighted cotangents, and the points'
+    gradient from the weights' derivatives (:func:`corner_weight_derivatives`)."""
+    spatial = tuple(grid.shape[:3])
+    F = grid.shape[-1]
+    lin, w = interp.corner_indices_and_weights(x, bound, spatial, size)
+    rows = (w.unsqueeze(-1) * g.unsqueeze(0)).reshape(-1, F)
+    d_grid = torch.zeros((grid[..., 0].numel(), F), dtype=g.dtype, device=g.device)
+    d_grid.index_add_(0, lin.reshape(-1), rows)
+    d_grid = d_grid.reshape(grid.shape)
+    if not need_x:
+        return d_grid, None
+    corners = torch.index_select(grid.reshape(-1, F), 0, lin.reshape(-1))
+    dots = torch.sum(corners.reshape(*lin.shape, F) * g.unsqueeze(0), dim=-1)
+    dw = corner_weight_derivatives(x, bound, spatial, size)
+    return d_grid, torch.sum(dw * dots.unsqueeze(0), dim=1).T
+
+
+class _GridInterp(torch.autograd.Function):
+    """Forward: the interp kernel.  Backward: the grad kernel at first order,
+    a differentiable recompute under ``create_graph`` (see the module note)."""
+
+    recomputes = 0
+
+    @staticmethod
+    def forward(ctx, grid, x, bound, size):
+        ctx.save_for_backward(grid, x, bound, size)
+        return grid_interpolate_cuda(grid, x, bound, size)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        grid, x, bound, size = ctx.saved_tensors
+        need_grid, need_x = ctx.needs_input_grad[:2]
+        if not (need_grid or need_x):
+            return None, None, None, None
+        if torch.is_grad_enabled():
+            _GridInterp.recomputes += 1
+            wrt = [t for t, need in ((grid, need_grid), (x, need_x)) if need]
+            out = interp.grid_interpolate(grid, x, bound, size)
+            got = list(torch.autograd.grad(out, wrt, grad_out, create_graph=True,
+                                           allow_unused=True))
+            got = [torch.zeros_like(t) if d is None else d for d, t in zip(got, wrt)]
+            d_grid = got.pop(0) if need_grid else None
+            d_x = got.pop(0) if need_x else None
+        else:
+            d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound,
+                                                     grad_out.contiguous(), size,
+                                                     need_x=need_x)
+            if not need_grid:
+                d_grid = None
+        return d_grid, d_x, None, None
+
+
+def grid_interpolate_dispatch(grid: torch.Tensor, x: torch.Tensor,
+                              bound: torch.Tensor,
+                              size: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Trilinear interpolation, differentiable to any order in ``grid`` and
+    ``x``: CUDA tensors run the kernels through ``_GridInterp``, CPU tensors
+    the plain version."""
+    if x.is_cuda:
+        return _GridInterp.apply(grid, x.contiguous(), bound, size)
+    if x.device.type == "cpu":
+        return grid_interpolate_plain(grid, x, bound, size)
+    raise ValueError(f"grid_interpolate runs on CUDA or CPU tensors, not {x.device}")
+

@@ -1,17 +1,30 @@
-"""The train step (port of ``miso_tpu/train/trainer.py::make_train_step``).
+"""The train step and the training loops (port of
+``miso_tpu/train/trainer.py``: ``make_train_step``, ``Trainer``,
+``GridTrainer``).
 
 One step: loss dict, total, gradients wrt every named parameter, the NaN
 guard, and the masked optimizer update.  Training phases (per-level
 coordinate descent, joint finetune, pose locking) change only the mask.
+
+The loops are plain Python, one freshly sampled batch per epoch.  The JAX
+package's scanned and pool bursts (``make_train_scan*``,
+``_train_scan_chunk``, ``MISO_DEBUG_BURST``) amortise TPU dispatch and have
+no counterpart here; checkpoints and TensorBoard logging wait for a later
+slice.
 """
 from __future__ import annotations
 
-from typing import Callable
+import time
+from typing import Callable, Dict, List, Optional
 
+import numpy as np
 import torch
 
 from miso_tpu_torch.losses.common import total_loss
-from miso_tpu_torch.train.optim import masked_adam_update, masked_sgd_update
+from miso_tpu_torch.models.base import (masked_select_tree, named_tensors,
+                                        relative_param_change, tree_full_mask)
+from miso_tpu_torch.train.optim import (masked_adam_init, masked_adam_update,
+                                        masked_sgd_init, masked_sgd_update)
 
 _UPDATES = {"adam": masked_adam_update, "sgd": masked_sgd_update}
 
@@ -47,3 +60,193 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
                 {k: v.detach() for k, v in loss_dict.items()})
 
     return step
+
+
+def _device_of(model) -> torch.device:
+    return next(iter(named_tensors(model).values())).device
+
+
+class Trainer:
+    """Generic loop: one mega-batch from ``dataset.sample(rng)`` per epoch.
+
+    Args:
+      cfg: train cfg dict (epochs, learning_rate, optimizer, eval_every,
+        verbose, relchange_tol, ...).
+      model: a module (GridNet); trained in place and returned by train().
+      loss_fn: (model, batch, key) -> dict; ``key`` is a torch.Generator on
+        the model's device, seeded from ``seed``.
+      dataset: object with ``sample(rng) -> dict of numpy arrays``.
+      mask: trainability mask dict; defaults to all-trainable.
+    """
+
+    def __init__(self, cfg: Dict, model, loss_fn, dataset, val_dataset=None,
+                 mask=None, seed: int = 0):
+        if int(cfg.get("ckpt_every", -1)) > 0:
+            raise NotImplementedError("checkpoints are ported in a later slice")
+        self.cfg = cfg
+        self.model = model
+        self.loss_fn = loss_fn
+        self.dataset = dataset
+        self.val_dataset = val_dataset
+        self.verbose = cfg.get("verbose", False)
+        self.lr = float(cfg.get("learning_rate", 1e-3))
+        self.optimizer_name = cfg.get("optimizer", "adam")
+        self.mask = mask if mask is not None else tree_full_mask(model)
+        self.opt_state = (masked_adam_init(model) if self.optimizer_name == "adam"
+                          else masked_sgd_init(model))
+        self.step_fn = make_train_step(loss_fn, self.optimizer_name)
+        self.device = _device_of(model)
+        self.rng = np.random.default_rng(seed)
+        self.key = torch.Generator(device=self.device).manual_seed(seed)
+        self.eval_every = cfg.get("eval_every", -1)
+        self.train_dict: Dict[str, List] = {"epochs": [], "elapsed_time": [],
+                                            "epoch_time": [], "total_loss": []}
+        self.val_dict: Dict[str, List] = {"epochs": [], "total_loss": []}
+        self.custom_eval_funcs: Dict[str, Callable] = {}
+        self.custom_eval_dict: Dict[str, List] = {"epochs": []}
+        self._params_prev = None
+        self.relchange = np.inf
+        self.total_epoch_time = 0.0
+        self.sample_time = 0.0   # host-side dataset.sample + upload
+        self.start_epoch = 0
+        self._train_start = time.process_time()
+
+    # -- hooks -------------------------------------------------------------
+    def pre_epoch(self, epoch: int):
+        if self.eval_every > 0 and epoch % self.eval_every == 0:
+            self.run_eval(epoch)
+
+    def post_epoch(self, epoch: int):
+        pass
+
+    def current_mask(self):
+        return self.mask
+
+    # -- main loop ---------------------------------------------------------
+    def train(self):
+        epochs = int(self.cfg.get("epochs", 1))
+        for epoch in range(self.start_epoch, epochs):
+            self.pre_epoch(epoch)
+            self.train_epoch(epoch)
+            self.post_epoch(epoch)
+        if self.eval_every > 0:
+            self.run_eval(epochs)
+        return self.model
+
+    def _to_device(self, batch):
+        return {k: torch.as_tensor(np.asarray(v)).to(self.device) for k, v in batch.items()}
+
+    def _next_batch(self):
+        t0 = time.perf_counter()
+        batch = self._to_device(self.dataset.sample(self.rng))
+        self.sample_time += time.perf_counter() - t0
+        return batch
+
+    def train_epoch(self, epoch: int):
+        """One step on a fresh batch.  Host time only: nothing here waits for
+        the device unless ``verbose`` prints a loss."""
+        t0 = time.perf_counter()
+        batch = self._next_batch()
+        self.model, self.opt_state, tl, loss_dict = self.step_fn(
+            self.model, self.opt_state, batch, self.key, self.current_mask(), self.lr)
+        self.total_epoch_time += time.perf_counter() - t0
+        if self.verbose and epoch % 10 == 0:
+            print(f"Train epoch {epoch} | train_loss={float(tl):.2e}")
+        self._last_loss_dict = loss_dict
+
+    # -- eval --------------------------------------------------------------
+    def register_eval_func(self, name: str, func: Callable):
+        self.custom_eval_funcs[name] = func
+        self.custom_eval_dict[name] = []
+
+    def run_eval(self, epoch: int):
+        self.eval(epoch, "train")
+        self.eval(epoch, "val")
+        self.custom_eval_dict["epochs"].append(epoch)
+        for name, func in self.custom_eval_funcs.items():
+            self.custom_eval_dict[name].append(
+                func(epoch, self.cfg, self.model, self.loss_fn,
+                     self.dataset, self.val_dataset))
+
+    def eval(self, epoch: int, mode: str = "train"):
+        dataset = self.dataset if mode == "train" else self.val_dataset
+        target = self.train_dict if mode == "train" else self.val_dict
+        if dataset is None:
+            return
+        batch = self._to_device(dataset.sample(self.rng))
+        loss_dict = self.loss_fn(self.model, batch, self.key)
+        target["epochs"].append(epoch)
+        tl = 0.0
+        for name, val in loss_dict.items():
+            v = float(torch.mean(val))
+            target.setdefault(name, []).append(v)
+            tl += v
+        target["total_loss"].append(tl)
+        if mode == "train":
+            target["elapsed_time"].append(time.process_time() - self._train_start)
+            target["epoch_time"].append(self.total_epoch_time)
+        if self.verbose:
+            print(f"Epoch {epoch} {mode} total loss: {tl:.2e}")
+
+    def update_relchange(self, mask=None):
+        """Relative change of the masked parameters since the last call."""
+        params = masked_select_tree(self.model,
+                                    mask if mask is not None else self.mask)
+        params = {k: v.detach().clone() for k, v in params.items()}
+        if self._params_prev is None:
+            self._params_prev = params
+            self.relchange = np.inf
+            return self.relchange
+        self.relchange = float(relative_param_change(params, self._params_prev))
+        self._params_prev = params
+        return self.relchange
+
+
+class GridTrainer(Trainer):
+    """Coarse-to-fine trainer.
+
+    Modes: 'coordinate' (level by level, then stay at the finest),
+    'coordinate+joint' (then unlock every level), 'joint'.  A level ends when
+    relchange < relchange_tol or after max_epochs_in_level epochs.  Only the
+    mask changes between phases.
+    """
+
+    def __init__(self, cfg, model, loss_fn, dataset, val_dataset=None,
+                 mask_for_level: Optional[Callable] = None, seed: int = 0):
+        super().__init__(cfg, model, loss_fn, dataset, val_dataset, seed=seed)
+        from miso_tpu_torch.models.grid_net import grid_net_mask
+
+        self.mask_for_level = mask_for_level or (
+            lambda m, level: grid_net_mask(m, level=level))
+        self.relchange_tol = float(cfg.get("relchange_tol", 0.0))
+        self.max_epochs_in_level = int(cfg.get("max_epochs_in_level", 100))
+        self.mode = cfg.get("grid_training_mode", "coordinate+joint")
+        self.num_levels = model.num_levels
+        self.active_level = self.num_levels if self.mode == "joint" else 0
+        self.epochs_in_level = 0
+        self.mask = self.mask_for_level(self.model, self.active_level)
+
+    def reset_convergence_check(self):
+        self._params_prev = None
+        self.relchange = np.inf
+        self.epochs_in_level = 0
+
+    def pre_epoch(self, epoch: int):
+        super().pre_epoch(epoch)
+        if self.relchange_tol > 0:
+            self.update_relchange()
+        if (self.relchange < self.relchange_tol
+                or self.epochs_in_level >= self.max_epochs_in_level):
+            if self.active_level < self.num_levels:
+                self.train_dict[f"level{self.active_level}_last_epoch"] = epoch
+                self.active_level += 1
+                if self.active_level >= self.num_levels:
+                    # 'coordinate' keeps training the finest level; otherwise
+                    # the joint finetune over all levels.
+                    level = (self.num_levels - 1 if self.mode == "coordinate"
+                             else self.num_levels)
+                else:
+                    level = self.active_level
+                self.mask = self.mask_for_level(self.model, level)
+                self.reset_convergence_check()
+        self.epochs_in_level += 1

@@ -115,3 +115,74 @@ def test_grid_net_pallas_matches_xla_and_counts(dev):
     assert fused_interp_decode_cuda.launches == 1
     for k in a:
         torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.parametrize("fdim", [1, 4, 12])
+def test_interp_kernels_match_plain(dev, fdim):
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain,
+                                                 grid_interpolate_plain)
+    grids, x, bound, _ = _case(dev, 2, fdim, 16, 0, 1, n=20000, seed=fdim)
+    grid = grids[1]
+    torch.testing.assert_close(grid_interpolate_cuda(grid, x, bound),
+                               grid_interpolate_plain(grid, x, bound), atol=1e-4, rtol=1e-4)
+    g = torch.randn((x.shape[0], fdim), device=dev)
+    for got, ref in zip(grid_interpolate_grad_cuda(grid, x, bound, g),
+                        grid_interpolate_grad_plain(grid, x, bound, g)):
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    padded = torch.randn((grid.shape[0] + 2, grid.shape[1] + 1, grid.shape[2] + 3, fdim),
+                         device=dev)
+    padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
+    size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
+    torch.testing.assert_close(grid_interpolate_cuda(padded, x, bound, size),
+                               grid_interpolate_plain(grid, x, bound), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", [(8, 1, 64, 1), (8, 3, 64, 2), (1, 1, 4, 0)],
+                         ids=["scannet", "h64x3_out3", "base"])
+def test_decode_kernel_matches_plain(dev, shape):
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
+    from miso_tpu_torch.ops.mlp import mlp_init
+    fin, fout, hidden, layers = shape
+    params = mlp_init(fin, fout, hidden, layers, generator=torch.Generator().manual_seed(0),
+                      device=dev)
+    x = torch.randn((30000, fin), device=dev)
+    for p in (params, tuple((W, None) for W, _ in params)):
+        torch.testing.assert_close(mlp_decode_cuda(p, x), mlp_decode_plain(p, x),
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_grid_net_default_decode_runs_kernels(dev):
+    """GridNet's default decode on the card launches the interp, interp grad and
+    decode kernels, and its tsdf loss and gradients match a CPU copy's."""
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda)
+    cfg = {"grid": {"feature_dim": 4, "init_stddev": 0.1,
+                    "bound": [[-1.2, 1.2], [-1.2, 1.2], [-1.2, 1.2]],
+                    "base_cell_size": 0.4, "per_level_scale": 2.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1}}
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(0)
+    n = 20000
+    batch = {"coords": rng.uniform(-1.1, 1.1, (n, 3)).astype(np.float32),
+             "sdf": rng.uniform(-0.3, 0.3, (n, 1)).astype(np.float32),
+             "sdf_valid": np.ones((n, 1), np.float32),
+             "sdf_signs": rng.integers(-1, 2, (n, 1)).astype(np.float32)}
+    loss = make_loss(tsdf_loss_3d, eik_weight=0.0, trunc_dist=0.2)
+    for fn in (grid_interpolate_cuda, grid_interpolate_grad_cuda, mlp_decode_cuda):
+        fn.launches = 0
+    results = []
+    for m, d in ((model, dev), (cpu, torch.device("cpu"))):
+        tl = sum(loss(m, {k: torch.from_numpy(v).to(d) for k, v in batch.items()}).values())
+        results.append([tl] + list(torch.autograd.grad(tl, list(m.features) + list(m.decoder))))
+    assert grid_interpolate_cuda.launches == 2 and mlp_decode_cuda.launches == 1
+    assert grid_interpolate_grad_cuda.launches == 2
+    for a, b in zip(*results):
+        a = a.cpu()
+        assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-6)
