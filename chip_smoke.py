@@ -18,8 +18,11 @@ Phases, in order; any failure exits non-zero and prints no result:
                * the interp forward and grad kernels (grid and points'
                  gradients) at the ScanNet fine and coarse levels, F=1 and
                  F=12, 1e6 points, and with padded storage;
-               * the decode kernel at 8->64->64->1, 8->64x3->3 and 1->4->1
-                 with 1e6 points, and without biases;
+               * the decode kernel at 8->64->64->1, 8->64x3->3, 1->4->1 (also
+                 without biases) and 12->128->128->17 with 1e6 points, and at
+                 1e6 + 13, 1, 15 and 33 points; its registers, shared memory
+                 and resident warps per SM; its times at 2^15, 2^18 and 1e6
+                 points against the 3xTF32 tensor-core and FP32 bounds;
                * first- and second-order gradients through the interp and
                  decode autograd.Functions against the plain versions';
                * kernel, plain and library (grid_sample) times against the
@@ -63,9 +66,11 @@ TIMED_STEPS = 20
 TIMED_CALLS = 20           # kernel / plain forward timings
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
-# cores, and HBM3 bandwidth.  The bound of a call is the larger of its FP32
-# operations over the first and its bytes over the second.
+# cores, dense TF32 on the tensor cores, and HBM3 bandwidth.  The bound of a
+# call is the larger of its operations over the peak of their type and its
+# bytes over the bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # Values: float32 sums taken in another order than the plain version's
@@ -403,38 +408,110 @@ def phase_interp_kernels():
     return errs, fwd, bwd
 
 
+def _decode_bounds(params, n):
+    """(ms, what bounds it) of one decode call of n points, and the FP32 SIMT
+    bound beside it.  The kernel runs the hidden layers in 3xTF32 on the
+    tensor cores (three TF32 products for each FP32 one, every width padded
+    to 8) and an output layer of at most 4 columns in FP32 on the CUDA cores
+    (k padded to 8): the least time is the larger of the two units' times
+    and the bytes' (x read and the output written once, and the weights)."""
+    fin, fout = params[0][0].shape[0], params[-1][0].shape[1]
+    nbytes = (n * (fin + fout) + sum(W.numel() + (0 if b is None else b.numel())
+                                     for W, b in params)) * 4
+    mma_layers = params[:-1] if fout <= 4 else params
+    padded = sum(-(-W.shape[0] // 8) * 8 * -(-W.shape[1] // 8) * 8 for W, _ in mma_layers)
+    dot = -(-params[-1][0].shape[0] // 8) * 8 * fout if fout <= 4 else 0
+    t_tc = 3 * 2.0 * padded * n / PEAK_TF32_FLOPS * 1e3
+    t_dot = 2.0 * dot * n / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    tc = (max(t_tc, t_dot), "operations") if max(t_tc, t_dot) >= t_bytes else (t_bytes, "bytes")
+    simt = _bound(nbytes, 2.0 * sum(W.shape[0] * W.shape[1] for W, _ in params) * n)
+    return tc, simt
+
+
+def _kernel_device_ms(fn, kernel_name, calls=TIMED_CALLS):
+    """Mean device milliseconds per launch of the kernels whose name contains
+    ``kernel_name``, over ``calls`` calls of fn under torch.profiler: the
+    device's own time, without the host's launch cost in it."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
+    check(len(us) == calls, f"profiler saw {len(us)} {kernel_name} launches in {calls} calls")
+    return sum(us) / calls / 1e3
+
+
 def phase_decode_kernel():
-    """The decode kernel against its plain version, and its time at the
-    ScanNet decoder widths."""
-    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
+    """The decode kernel against its plain version at the ScanNet decoder
+    widths, off-default, widest and ragged shapes, and its times at a
+    training batch, a lattice chunk and 1e6 points."""
+    from miso_tpu_torch.ops.fused_decode import (mlp_decode_cuda, mlp_decode_occupancy,
+                                                 mlp_decode_plain)
     from miso_tpu_torch.ops.mlp import mlp_init
     errs = {}
     dev = torch.device("cuda")
-    cases = [("scannet_8_64_64_1", 8, 1, 64, 1), ("8_64x3_3", 8, 3, 64, 2),
-             ("base_1_4_1", 1, 1, 4, 0)]
+
+    def case(fin, fout, hidden, layers, n, seed):
+        x = torch.randn((n, fin), generator=torch.Generator(device=dev).manual_seed(seed),
+                        device=dev)
+        return mlp_init(fin, fout, hidden, layers,
+                        generator=torch.Generator().manual_seed(seed), device=dev), x
+
+    # (name, F_in, out, hidden, hidden layers, points): the ScanNet decoder, an
+    # off-default stack, base.yaml's, the widest layers with a ragged output
+    # (3 levels x F=4 in, 128 hidden, 17 out), and ragged and tiny tiles.
+    cases = [("scannet_8_64_64_1", 8, 1, 64, 1, N_POINTS),
+             ("8_64x3_3", 8, 3, 64, 2, N_POINTS), ("base_1_4_1", 1, 1, 4, 0, N_POINTS),
+             ("wide_12_128_128_17", 12, 17, 128, 1, N_POINTS)]
+    cases += [(f"scannet_n{n}", 8, 1, 64, 1, n) for n in (N_POINTS + 13, 1, 15, 33)]
+    cases += [(f"wide_n{n}", 12, 17, 128, 1, n) for n in (N_POINTS + 13, 1, 15, 33)]
     with torch.no_grad():
-        for seed, (name, fin, fout, hidden, layers) in enumerate(cases, start=30):
-            gen = torch.Generator(device=dev).manual_seed(seed)
-            x = torch.randn((N_POINTS, fin), generator=gen, device=dev)
-            params = mlp_init(fin, fout, hidden, layers,
-                              generator=torch.Generator().manual_seed(seed), device=dev)
+        for seed, (name, fin, fout, hidden, layers, n) in enumerate(cases, start=30):
+            params, x = case(fin, fout, hidden, layers, n, seed)
             _check_values(f"decode_{name}", mlp_decode_cuda(params, x),
                           mlp_decode_plain(params, x), errs)
-        nobias = tuple((W, None) for W, _ in params)
-        _check_values("decode_base_no_bias", mlp_decode_cuda(nobias, x),
-                      mlp_decode_plain(nobias, x), errs)
-        x = torch.randn((N_POINTS, 8), generator=torch.Generator(device=dev)
-                        .manual_seed(30), device=dev)
-        params = mlp_init(8, 1, 64, 1, generator=torch.Generator().manual_seed(30),
-                          device=dev)
-        t = dict(ms=cuda_ms(lambda: mlp_decode_cuda(params, x)),
-                 plain_ms=cuda_ms(lambda: mlp_decode_plain(params, x)),
-                 library_ms=None)
-    t["bound_ms"], t["bound_by"] = _bound(
-        (x.numel() + N_POINTS + sum(W.numel() + b.numel() for W, b in params)) * 4,
-        2.0 * sum(W.shape[0] * W.shape[1] for W, _ in params) * N_POINTS)
-    log(f"  decode 8->64->64->1, {N_POINTS} points: kernel {t['ms']:.4f} ms, plain "
-        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+            if name == "base_1_4_1":
+                nobias = tuple((W, None) for W, _ in params)
+                _check_values("decode_base_no_bias", mlp_decode_cuda(nobias, x),
+                              mlp_decode_plain(nobias, x), errs)
+
+        # The occupancy of the kernels the ScanNet and widest decoders select
+        # (their registers and spills are in phase 1's build report).
+        occupancy = {}
+        for name, fin, fout, hidden in (("scannet", 8, 1, 64), ("wide", 12, 17, 128)):
+            params, x = case(fin, fout, hidden, 1, 1, 0)
+            occ = mlp_decode_occupancy(params, x)
+            occ["warps_per_sm"] = occ["blocks_per_sm"] * occ["threads"] // 32
+            occupancy[name] = occ
+            log(f"  decode kernel for the {name} decoder: {occ['threads']} threads and "
+                f"{occ['smem_bytes']} B of dynamic shared memory per block (no static), "
+                f"{occ['rows_per_warp']} points per warp tile, {occ['blocks_per_sm']} "
+                f"resident blocks = {occ['warps_per_sm']} warps per SM")
+
+        # Times at the ScanNet decoder widths: a training batch, a lattice
+        # chunk and 1e6 points; ms is the wrapper's call by CUDA events (what a
+        # caller waits for), device_ms the kernel alone (profiler).
+        sizes = {}
+        for n in (2 ** 15, 2 ** 18, N_POINTS):
+            params, x = case(8, 1, 64, 1, n, 30)
+            t = dict(ms=cuda_ms(lambda: mlp_decode_cuda(params, x)),
+                     device_ms=_kernel_device_ms(lambda: mlp_decode_cuda(params, x),
+                                                 "mlp_decode_kernel"),
+                     plain_ms=cuda_ms(lambda: mlp_decode_plain(params, x)),
+                     library_ms=None)
+            (t["bound_ms"], t["bound_by"]), (t["fp32_bound_ms"], _) = _decode_bounds(params, n)
+            sizes[n] = t
+            log(f"  decode 8->64->64->1, {n} points: call {t['ms']:.4f} ms, kernel "
+                f"{t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+                f"{t['bound_ms']:.4f} ms ({t['bound_by']}: 3xTF32 on the tensor cores); "
+                f"FP32 SIMT bound {t['fp32_bound_ms']:.4f} ms")
+    t = dict(sizes[N_POINTS], sizes={str(n): v for n, v in sizes.items()},
+             occupancy=occupancy)
     return errs, t
 
 
@@ -803,7 +880,7 @@ def main() -> int:
         report_log = _build.BUILD_DIR / f"{name}.log"
         if report_log.exists():
             for line in report_log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
                     log(f"    {line.strip()}")
     log(f"  native runtime (g++): {native_s:.1f} s; build and load: {build_s:.1f} s")
 
@@ -825,7 +902,8 @@ def main() -> int:
 
     log("phase 5: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
-                      "main_path": main_report, "mesh_path": mesh_report}), flush=True)
+                      "decode_kernel": decode_t, "main_path": main_report,
+                      "mesh_path": mesh_report}), flush=True)
 
     def mesh_launches(name):
         return (mesh_report["train_launches"][name]
@@ -855,7 +933,7 @@ def main() -> int:
               grad_t),
         entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
               "miso_tpu/ops/pallas_decode.py:107", mesh_launches("decode"),
-              worst("decode_scannet_8_64_64_1", "mesh_decode_"), decode_t),
+              worst("decode_scannet", "mesh_decode_"), decode_t),
     ]
     tpu_kernels = [
         {"replaces": "miso_tpu/ops/pallas_decode.py:186", "name": "_fused_kernel",

@@ -17,9 +17,10 @@ The fused op has three parts:
     (:func:`fused_interp_decode_backward`), so derivatives of any order work.
 
 The decode op has the same three: :func:`mlp_decode_cuda` (kernel
-``csrc/mlp_decode.cu``, the MLP half of the fused kernel), its plain version
-:func:`mlp_decode_plain` (``ops/mlp.py::mlp_apply``) and ``_MlpDecode``,
-whose backward recomputes the MLP with torch ops as ``_decode_jvp`` does.
+``csrc/mlp_decode.cu``, a 3xTF32 tensor-core MLP, ``csrc/mtt_mma.cuh``), its
+plain version :func:`mlp_decode_plain` (``ops/mlp.py::mlp_apply``) and
+``_MlpDecode``, whose backward recomputes the MLP with torch ops as
+``_decode_jvp`` does.
 
 :func:`fused_interp_decode` and :func:`mlp_decode` dispatch on the device of
 ``x``: CUDA tensors go through the kernel, CPU tensors through the plain
@@ -37,7 +38,7 @@ from miso_tpu_torch.ops.interp import grid_decode, multi_level_interpolate
 from miso_tpu_torch.ops.mlp import mlp_apply
 
 # Mirrors of the kernels' compile-time maxima (csrc/mtt_mlp.cuh), checked
-# against each library when it is loaded.
+# against each library when it is loaded.  THREADS is the fused kernel's block.
 MAX_LEVELS = 8
 MAX_LAYERS = 8
 MAX_WIDTH = 128
@@ -72,10 +73,20 @@ class _FusedArgs(ctypes.Structure):
                 ("mlp", _Mlp)]
 
 
+class _MmaMlp(ctypes.Structure):
+    _fields_ = [("n_layers", ctypes.c_int), ("w_floats", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int),
+                ("W", ctypes.c_void_p * MAX_LAYERS),
+                ("b", ctypes.c_void_p * MAX_LAYERS),
+                ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
+                ("woff", ctypes.c_int * MAX_LAYERS),
+                ("boff", ctypes.c_int * MAX_LAYERS)]
+
+
 class _DecodeArgs(ctypes.Structure):
     _anonymous_ = ("mlp",)
     _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("mlp", _Mlp)]
+                ("n", ctypes.c_longlong), ("mlp", _MmaMlp)]
 
 
 def _round_up(v, m):
@@ -101,6 +112,24 @@ def smem_layout(dims: Sequence[int]):
     return outp, woff, boff, off, max_width, (off + 2 * max_width * THREADS) * 4
 
 
+def mma_layout(dims: Sequence[int]):
+    """Shared-memory layout of the decode kernel (``csrc/mtt_mma.cuh``) for
+    MLP widths ``dims``.
+
+    Each layer's weights, zero-padded to multiples of 8 in both dimensions
+    and stored in the order the warps' mma fragments read them, then its bias
+    zero-padded to a multiple of 8.  Returns (woff, boff, w_floats,
+    smem_bytes).
+    """
+    woff, boff, off = [], [], 0
+    for fan_in, fan_out in zip(dims[:-1], dims[1:]):
+        woff.append(off)
+        off += _round_up(fan_in, 8) * _round_up(fan_out, 8)
+        boff.append(off)
+        off += _round_up(fan_out, 8)
+    return woff, boff, off, off * 4
+
+
 def _check_tensors(named, device):
     for name, t in named:
         if t.dtype != torch.float32:
@@ -111,8 +140,9 @@ def _check_tensors(named, device):
             raise ValueError(f"{name} is not contiguous")
 
 
-def _check_mlp(decoder_params, in_dim, device, bias_required):
-    """Raise on an MLP the kernels do not take; returns its widths."""
+def _check_mlp(decoder_params, in_dim, device, bias_required, smem_bytes):
+    """Raise on an MLP the kernels do not take; returns its widths.
+    ``smem_bytes(dims)`` is the kernel's shared memory for widths ``dims``."""
     if not 1 <= len(decoder_params) <= MAX_LAYERS:
         raise ValueError(f"{len(decoder_params)} layers; the kernel takes 1..{MAX_LAYERS}")
     dims = [in_dim]
@@ -132,7 +162,7 @@ def _check_mlp(decoder_params, in_dim, device, bias_required):
     _check_tensors(named, device)
     if max(dims) > MAX_WIDTH:
         raise ValueError(f"MLP widths {dims} exceed the kernel's maximum {MAX_WIDTH}")
-    smem = smem_layout(dims)[-1]
+    smem = smem_bytes(dims)
     if smem > SMEM_LIMIT:
         raise ValueError(f"MLP widths {dims} need {smem} B of shared memory; "
                          f"the kernel has {SMEM_LIMIT}")
@@ -168,7 +198,8 @@ def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
                 raise TypeError(f"sizes[{l}] must be a (3,) int32 tensor")
             if s.device != x.device or not s.is_contiguous():
                 raise ValueError(f"sizes[{l}] must be contiguous and on {x.device}")
-    return _check_mlp(decoder_params, n_levels * fdim, x.device, bias_required=True)
+    return _check_mlp(decoder_params, n_levels * fdim, x.device, bias_required=True,
+                      smem_bytes=lambda dims: smem_layout(dims)[-1])
 
 
 def _pack_mlp(m, decoder_params, dims):
@@ -209,6 +240,10 @@ def _library(name: str = "fused_interp_decode"):
     getattr(lib, launcher).argtypes = [ctypes.POINTER(args), ctypes.c_int,
                                        ctypes.c_void_p]
     getattr(lib, launcher).restype = ctypes.c_int
+    if name == "mlp_decode":
+        lib.mtt_mlp_decode_occupancy.argtypes = [
+            ctypes.POINTER(_DecodeArgs), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+        lib.mtt_mlp_decode_occupancy.restype = ctypes.c_int
     limits = (ctypes.c_int * 4)()
     lib.mtt_limits(limits)
     if tuple(limits) != (MAX_LEVELS, MAX_LAYERS, MAX_WIDTH, THREADS):
@@ -344,6 +379,25 @@ def fused_interp_decode(grids: Sequence[torch.Tensor], x: torch.Tensor,
 # The MLP decode alone (port of pallas_decode / _decode_kernel).
 # ---------------------------------------------------------------------------
 
+def _decode_args(decoder_params, x):
+    """Check ``x`` and the MLP for the decode kernel and pack its arguments
+    but the output; returns (args, dims)."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be (N, F_in), got shape {tuple(x.shape)}")
+    _check_tensors([("x", x)], x.device)
+    dims = _check_mlp(decoder_params, x.shape[1], x.device, bias_required=False,
+                      smem_bytes=lambda dims: mma_layout(dims)[-1])
+    woff, boff, w_floats, smem = mma_layout(dims)
+    a = _DecodeArgs()
+    a.x, a.n = x.data_ptr(), x.shape[0]
+    a.n_layers, a.w_floats, a.smem_bytes = len(decoder_params), w_floats, smem
+    for i, (W, b) in enumerate(decoder_params):
+        a.W[i], a.b[i] = W.data_ptr(), None if b is None else b.data_ptr()
+        a.woff[i], a.boff[i] = woff[i], boff[i]
+    a.dims[:len(dims)] = dims
+    return a, dims
+
+
 def mlp_decode_cuda(decoder_params, x: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel ``csrc/mlp_decode.cu``: (N, F_in) float32 ->
     (N, out) float32, ReLU between layers, a None bias taken as zeros.
@@ -352,20 +406,31 @@ def mlp_decode_cuda(decoder_params, x: torch.Tensor) -> torch.Tensor:
     widths above the kernel's maxima and non-contiguous inputs.  No
     autograd: see :func:`mlp_decode`.
     """
-    if x.ndim != 2:
-        raise ValueError(f"x must be (N, F_in), got shape {tuple(x.shape)}")
-    _check_tensors([("x", x)], x.device)
-    dims = _check_mlp(decoder_params, x.shape[1], x.device, bias_required=False)
+    a, dims = _decode_args(decoder_params, x)
     if not x.is_cuda:
         raise ValueError(f"mlp_decode_cuda needs CUDA tensors, got {x.device}")
     lib = _library("mlp_decode")
     out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
-    a = _DecodeArgs()
-    a.x, a.out, a.n = x.data_ptr(), out.data_ptr(), x.shape[0]
-    _pack_mlp(a.mlp, decoder_params, dims)
+    a.out = out.data_ptr()
     _launch(lib, "mtt_mlp_decode", a, x.device, "mlp_decode")
     mlp_decode_cuda.launches += 1
     return out
+
+
+def mlp_decode_occupancy(decoder_params, x: torch.Tensor):
+    """The decode kernel that ``mlp_decode_cuda(decoder_params, x)`` would
+    launch, from the CUDA occupancy calculator: a dict of its resident blocks
+    per SM, threads per block, points per warp tile and shared-memory bytes
+    per block."""
+    a, _ = _decode_args(decoder_params, x)
+    got = (ctypes.c_int * 3)()
+    lib = _library("mlp_decode")
+    code = lib.mtt_mlp_decode_occupancy(ctypes.byref(a), x.device.index, got)
+    if code != 0:
+        raise RuntimeError("mlp_decode occupancy query failed: "
+                           + lib.mtt_error_string(code).decode())
+    return dict(blocks_per_sm=got[0], threads=got[1], rows_per_warp=got[2],
+                smem_bytes=a.smem_bytes)
 
 
 mlp_decode_cuda.launches = 0

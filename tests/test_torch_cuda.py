@@ -139,15 +139,26 @@ def test_interp_kernels_match_plain(dev, fdim):
                                grid_interpolate_plain(grid, x, bound), atol=1e-4, rtol=1e-4)
 
 
-@pytest.mark.parametrize("shape", [(8, 1, 64, 1), (8, 3, 64, 2), (1, 1, 4, 0)],
-                         ids=["scannet", "h64x3_out3", "base"])
+DECODE_CASES = {  # (F_in, out, hidden, hidden layers, points)
+    "scannet": (8, 1, 64, 1, 30000), "h64x3_out3": (8, 3, 64, 2, 30000),
+    "base": (1, 1, 4, 0, 30000),
+    # 3 levels x F=4 in, the widest layers, a ragged output.
+    "wide_12_128_128_17": (12, 17, 128, 1, 30000),
+    # Ragged and tiny tiles (a warp takes 32 points at 64 wide, 16 at 128).
+    "scannet_n1000013": (8, 1, 64, 1, 1_000_013), "scannet_n1": (8, 1, 64, 1, 1),
+    "scannet_n15": (8, 1, 64, 1, 15), "scannet_n33": (8, 1, 64, 1, 33),
+    "wide_n1000013": (12, 17, 128, 1, 1_000_013), "wide_n1": (12, 17, 128, 1, 1),
+    "wide_n15": (12, 17, 128, 1, 15), "wide_n33": (12, 17, 128, 1, 33)}
+
+
+@pytest.mark.parametrize("shape", list(DECODE_CASES), ids=list(DECODE_CASES))
 def test_decode_kernel_matches_plain(dev, shape):
     from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
     from miso_tpu_torch.ops.mlp import mlp_init
-    fin, fout, hidden, layers = shape
+    fin, fout, hidden, layers, n = DECODE_CASES[shape]
     params = mlp_init(fin, fout, hidden, layers, generator=torch.Generator().manual_seed(0),
                       device=dev)
-    x = torch.randn((30000, fin), device=dev)
+    x = torch.randn((n, fin), device=dev)
     for p in (params, tuple((W, None) for W, _ in params)):
         torch.testing.assert_close(mlp_decode_cuda(p, x), mlp_decode_plain(p, x),
                                    atol=1e-4, rtol=1e-4)

@@ -7,6 +7,10 @@ with respect to x through the custom_jvp, and decoders without biases.
 ``_MlpDecode`` runs here with the plain version standing in for the kernel.
 Tolerances (tests/_torch_port.py): values rtol 1e-4 / atol 1e-5, gradients
 rtol 2e-3 / atol 2e-4.
+
+The kernel's shared-memory layout (``mma_layout``, ``csrc/mtt_mma.cuh``) is
+held here too: an emulation of its staging and fragment reads in FP32
+against ``mlp_apply`` and the JAX ``mlp_apply``, at 1e-5.
 """
 import jax
 import jax.numpy as jnp
@@ -15,9 +19,11 @@ import pytest
 import torch
 
 from _torch_port import GRAD, VAL, close, t
+from miso_tpu.ops.mlp import mlp_apply as jmlp_apply
 from miso_tpu.ops.mlp import mlp_init as jmlp_init
 from miso_tpu.ops.pallas_decode import pallas_decode
 from miso_tpu_torch.ops import fused_decode as fd
+from miso_tpu_torch.ops.mlp import mlp_apply
 
 
 def _case(seed, fin, fout, hidden, layers, n, bias=True):
@@ -136,3 +142,123 @@ def test_kernel_wrapper_rejects():
     with pytest.raises(ValueError):
         fd.mlp_decode_cuda(wide, t(x))
     assert fd.mlp_decode_cuda.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The decode kernel's layout (csrc/mtt_mma.cuh), emulated on the CPU.
+# ---------------------------------------------------------------------------
+
+# Column p of an A fragment's 8-wide k tile holds unit PERM[p] of the tile:
+# p = q <-> 2q and p = q + 4 <-> 2q + 1, so a layer's accumulator (columns 2q,
+# 2q + 1 of lane q) is the next layer's A fragment as it stands.
+PERM = [0, 2, 4, 6, 1, 3, 5, 7]
+
+
+def _tiles(width):
+    return -(-width // 8)
+
+
+def _stage(params, dims):
+    """The shared-memory image mtt_mma_stage builds, at mma_layout's offsets:
+    float ((kt * n_tiles + nt) * 32 + lane) * 2 + j holds
+    W[8kt + 2(lane % 4) + j][8nt + lane // 4], zero outside W, and each bias
+    zero-padded to a multiple of 8."""
+    woff, boff, w_floats, smem_bytes = fd.mma_layout(dims)
+    assert smem_bytes == 4 * w_floats
+    smem = torch.full((w_floats,), float("nan"))
+    for l, (W, b) in enumerate(params):
+        fan_in, fan_out = dims[l], dims[l + 1]
+        n_tiles = _tiles(fan_out)
+        i = torch.arange(_tiles(fan_in) * n_tiles * 64)
+        tile, lane = i >> 6, (i >> 1) & 31
+        kt, nt = tile // n_tiles, tile % n_tiles
+        k, n = 8 * kt + 2 * (lane & 3) + (i & 1), 8 * nt + (lane >> 2)
+        inside = (k < fan_in) & (n < fan_out)
+        w = W[k.clamp(max=fan_in - 1), n.clamp(max=fan_out - 1)]
+        smem[woff[l] + i] = torch.where(inside, w, torch.zeros(()))
+        bias = torch.zeros(8 * n_tiles)
+        if b is not None:
+            bias[:fan_out] = b
+        smem[boff[l]:boff[l] + 8 * n_tiles] = bias
+    assert not torch.isnan(smem).any(), "the staged layers do not cover the layout"
+    return smem
+
+
+def _emulate(smem, dims, x):
+    """The kernel's arithmetic on the CPU, in FP32 without TF32 rounding:
+    rows padded with zeros to whole warp tiles (32 points, 16 above 64-wide
+    layers), each layer's B tiles read from the image as the lanes read them
+    (the float2 of lane (g, q) holds k rows q and q + 4 of column g), A
+    columns in fragment order, bias, ReLU between layers, the output cut to
+    n rows and dims[-1] columns."""
+    woff, boff, _, _ = fd.mma_layout(dims)
+    n = x.shape[0]
+    rows = 32 if _tiles(max(dims)) <= 8 else 16
+    n_pad = -(-n // rows) * rows
+    act = torch.zeros((n_pad, 8 * _tiles(dims[0])))
+    act[:n, :dims[0]] = x
+    for l in range(len(dims) - 1):
+        k_tiles, n_tiles = _tiles(dims[l]), _tiles(dims[l + 1])
+        img = smem[woff[l]:woff[l] + k_tiles * n_tiles * 64]
+        B = (img.reshape(k_tiles, n_tiles, 8, 4, 2)     # kt, nt, g, q, j
+             .permute(0, 4, 3, 1, 2)                   # kt, j, q, nt, g: row p = 4j + q
+             .reshape(8 * k_tiles, 8 * n_tiles))
+        A = act.reshape(n_pad, k_tiles, 8)[:, :, PERM].reshape(n_pad, 8 * k_tiles)
+        act = A @ B + smem[boff[l]:boff[l] + 8 * n_tiles]
+        if l < len(dims) - 2:
+            act = torch.relu(act)
+    return act[:n, :dims[-1]]
+
+
+LAYOUT_CASES = {"scannet": (8, 1, 64, 1, 1000), "h64x3_out3": (8, 3, 64, 2, 33),
+                "base": (1, 1, 4, 0, 15), "wide_12_128_128_17": (12, 17, 128, 1, 1)}
+
+
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("shape", list(LAYOUT_CASES), ids=list(LAYOUT_CASES))
+def test_staged_layout_emulation_matches_mlp_apply(shape, bias):
+    """The staged weights read in fragment order give the MLP: against
+    mlp_apply (the kernel's plain version) and the JAX mlp_apply, 1e-5."""
+    fin, fout, hidden, layers, n = LAYOUT_CASES[shape]
+    params, x = _case(5, fin, fout, hidden, layers, n, bias)
+    tp = _torch_params(params)
+    dims = [fin] + [W.shape[1] for W, _ in tp]
+    got = _emulate(_stage(tp, dims), dims, t(x))
+    tol = dict(rtol=1e-5, atol=1e-5)
+    close(got, mlp_apply(tp, t(x)).detach(), tol)
+    close(got, jmlp_apply(params, jnp.asarray(x)), tol)
+
+
+def test_decode_arguments_layout():
+    """The struct handed to the decode kernel at the ScanNet decoder widths:
+    each layer's weights padded to 8 x 8 tiles, then its bias padded to 8."""
+    params, x = _case(6, 8, 1, 64, 1, 64)
+    tp, tx = _torch_params(params), t(x)
+    a, dims = fd._decode_args(tp, tx)
+    assert dims == [8, 64, 64, 1]
+    assert (a.n, a.n_layers, a.x) == (64, 3, tx.data_ptr())
+    assert a.W[1] == tp[1][0].data_ptr() and a.b[2] == tp[2][1].data_ptr()
+    assert list(a.woff[:3]) == [0, 576, 4736]
+    assert list(a.boff[:3]) == [512, 4672, 5248]
+    assert a.w_floats == 5256 and a.smem_bytes == 5256 * 4
+    assert list(a.dims[:4]) == [8, 64, 64, 1]
+
+
+def test_decode_layout_takes_what_the_fused_layout_fits():
+    """Every MLP whose one-thread-per-point layout fits in a block fits in the
+    decode kernel's: the widths the wrapper took before the tensor-core
+    layout still pass its shared-memory check."""
+    rng = np.random.default_rng(7)
+    widths = [1, 3, 4, 8, 12, 17, 32, 64, 100, 128]
+    checked = 0
+    for _ in range(400):
+        dims = list(rng.choice(widths, size=rng.integers(2, fd.MAX_LAYERS + 2)))
+        old = fd.smem_layout(dims)[-1]
+        if old > fd.SMEM_LIMIT:
+            continue
+        assert fd.mma_layout(dims)[-1] <= old, dims
+        checked += 1
+    for dims in ([8, 128, 128, 128, 1], [12, 128, 128, 17], [128] * (fd.MAX_LAYERS + 1)):
+        if fd.smem_layout(dims)[-1] <= fd.SMEM_LIMIT:
+            assert fd.mma_layout(dims)[-1] <= fd.SMEM_LIMIT, dims
+    assert checked > 100
