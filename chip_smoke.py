@@ -16,8 +16,14 @@ Phases, in order; any failure exits non-zero and prints no result:
                  base.yaml's (1 level, F=1, no hidden stack); the
                  autograd.Function's gradients against the plain version's;
                * the interp forward and grad kernels (grid and points'
-                 gradients) at the ScanNet fine and coarse levels, F=1 and
-                 F=12, 1e6 points, and with padded storage;
+                 gradients, and the grid's alone) at the ScanNet fine and
+                 coarse levels, F=1, 12 and 36, 1e6 points; at the fine level
+                 with all of them in one cell and all in 16^3 cells, and with
+                 0 and 1 points; padded storage with a logical size at F=1, 4
+                 and 12; their times (the grad's table-only and with the
+                 points' gradient, the call and the device time of its
+                 kernels) at both ScanNet levels with 1e6 points and at the
+                 mesh path's levels with 2^15;
                * the decode kernel at 8->64->64->1, 8->64x3->3, 1->4->1 (also
                  without biases) and 12->128->128->17 with 1e6 points, and at
                  1e6 + 13, 1, 15 and 33 points; its registers, shared memory
@@ -27,12 +33,21 @@ Phases, in order; any failure exits non-zero and prints no result:
                  decode autograd.Functions against the plain versions';
                * kernel, plain and library (grid_sample) times against the
                  bound of each at the ScanNet sizes;
+               the kernels line takes the interp kernels' times at the ScanNet
+               fine level (the grad's table only), and beside
+               them the grad's with the points' gradient, as the
+               default-decode step calls it, and its coarse-level call;
   3. main    - the mapping train step that bench.py drives, at full ScanNet
                width: GridNet (2 levels, F=4, 0.5 m / 0.1 m cells, 64x1
-               decoder, 372 poses, decoder.impl "pallas"), mapping_loss with
-               L1 SDF + free space, masked Adam, 4 rotating 1e6-point batches,
-               3 warm-up and 20 timed steps; the first loss against a plain
-               CPU copy of the model;
+               decoder, 372 poses) with the default decode that bench.py and
+               configs/ use (no decoder.impl key), mapping_loss with L1 SDF +
+               free space, masked Adam, 4 rotating 1e6-point batches, 3
+               warm-up and 20 timed steps, each launching the interp kernel
+               twice (one per level), the interp grad kernel twice and the
+               decode kernel once; then the same step with decoder.impl
+               "pallas", one fused kernel launch per step, 3 warm-up and 10
+               timed steps; in both, the first loss against a plain CPU copy
+               of the model;
   4. mesh    - the synthetic mesh path at the ScanNet widths with the default
                decode: room_scene(4.0) -> Sdf3D -> GridTrainer (tsdf_loss_3d,
                autograd eikonal, 300 epochs) -> save_mesh (192^3 lattice,
@@ -42,7 +57,10 @@ Phases, in order; any failure exits non-zero and prints no result:
                the trained model at the path's shapes (a 2^15-point batch,
                2^15 eikonal points, a 2^18-point lattice chunk);
   5. report  - the card, step times, kernel times against the bound, and the
-               kernels line; the last line is {"ok": true, "device": ...}.
+               kernels line (each kernel's launches: the interp, interp grad
+               and decode kernels' in phase 3's default-decode run and phase
+               4, the fused kernel's in phase 3's fused run); the last line
+               is {"ok": true, "device": ...}.
 
 Imports torch, numpy, scipy and miso_tpu_torch only.  Needs one CUDA card.
 """
@@ -82,9 +100,9 @@ VALUE_RTOL = 1e-4
 # into the grids accumulates with atomics in a run-dependent order.
 GRAD_RTOL_OF_MAX = 1e-4
 
-# configs/rgbd/scannet.yaml's model, as bench.py trains it: a free decoder
-# (fix: false, no pretrained weights) on features drawn with init_stddev 1e-4,
-# and decoder.impl "pallas" for the fused kernel.
+# configs/rgbd/scannet.yaml's model, as bench.py:43-52 trains it: a free
+# decoder (fix: false, no pretrained weights) on features drawn with
+# init_stddev 1e-4, and no decoder.impl key, so GridNet's default decode.
 SCANNET_MODEL = {
     "spatial_dim": 3,
     "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 1e-4,
@@ -92,9 +110,13 @@ SCANNET_MODEL = {
              "base_cell_size": 0.5, "per_level_scale": 5.0, "n_levels": 2},
     "decoder": {"type": "mlp", "hidden_dim": 64, "hidden_layers": 1,
                 "out_dim": 1, "pos_invariant": True, "fix": False,
-                "pretrained_model": None, "impl": "pallas"},
+                "pretrained_model": None},
     "pose": {"optimize": False, "num_poses": 372},
 }
+# The same model on the fused kernel.
+SCANNET_MODEL_FUSED = {**SCANNET_MODEL,
+                       "decoder": {**SCANNET_MODEL["decoder"], "impl": "pallas"}}
+FUSED_TIMED_STEPS = 10
 # bench.py:72-73.
 MAPPING_HYPER = dict(loss_type="L1", weight_sdf=1.0, weight_eik=0.0,
                      weight_fs=0.1, trunc_dist=0.15)
@@ -332,81 +354,147 @@ def _grid_sample(vol, coords):
                                            padding_mode="zeros", align_corners=False)
 
 
+# The interp kernels' shapes on their paths, (name, bound, cell, points): the
+# ScanNet levels at 1e6 points (bench.py's default-decode mapping step) and
+# the synthetic mesh path's levels at 2^15 (its training batches;
+# room_scene(4.0)'s bound, 0.1 m and 0.5 m cells).
+MESH_BOUND = [[0.0, 5.0], [0.0, 5.0], [0.0, 2.65]]
+INTERP_SHAPES = [
+    ("scannet_fine", SCANNET_MODEL["grid"]["bound"], 0.1, N_POINTS),
+    ("scannet_coarse", SCANNET_MODEL["grid"]["bound"], 0.5, N_POINTS),
+    ("mesh_fine", MESH_BOUND, 0.1, 2 ** 15),
+    ("mesh_coarse", MESH_BOUND, 0.5, 2 ** 15),
+]
+
+
+def _interp_bounds(grid, x, need_x):
+    """(ms, what bounds it) of one interp grad call (or forward): x, the
+    cotangent (or the output) and the table once each, plus, with the points'
+    gradient, a read of the table and 12 B a point; 2 FMA a corner and
+    feature, twice with the points' gradient."""
+    n, fdim = x.shape[0], grid.shape[-1]
+    nbytes = (x.numel() + n * fdim + grid.numel() + 6) * 4
+    flops = 2.0 * 8 * fdim * n
+    if need_x:
+        nbytes += (grid.numel() + 3 * n) * 4
+        flops *= 2
+    return _bound(nbytes, flops)
+
+
+def _interp_grad_check(name, grid, x, bound, size, errs, seed):
+    """The grad kernel, with and without the points' gradient, against
+    grid_interpolate_grad_plain."""
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain)
+    gen = torch.Generator(device=x.device).manual_seed(seed)
+    cot = torch.randn((x.shape[0], grid.shape[-1]), generator=gen, device=x.device)
+    d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, cot, size)
+    r_grid, r_x = grid_interpolate_grad_plain(grid, x, bound, cot, size)
+    _check_grad(f"interp_grad_{name}_table", d_grid, r_grid, errs)
+    check(d_x.shape == r_x.shape, f"interp_grad_{name}: points' gradient {tuple(d_x.shape)}")
+    if x.shape[0]:
+        _check_grad(f"interp_grad_{name}_points", d_x, r_x, errs)
+    only, none = grid_interpolate_grad_cuda(grid, x, bound, cot, size, need_x=False)
+    check(none is None, "need_x=False returned a points' gradient")
+    _check_grad(f"interp_grad_{name}_table_only", only, r_grid, errs)
+
+
 def phase_interp_kernels():
     """The interp forward and grad kernels against their plain versions, and
-    their times at the ScanNet fine level beside grid_sample's."""
+    their times at the shapes of their paths beside grid_sample's."""
     from miso_tpu_torch.ops.tiled_interp import (
         grid_interpolate_cuda, grid_interpolate_grad_cuda, grid_interpolate_grad_plain,
-        grid_interpolate_plain)
+        grid_interpolate_plain, interp_grad_copies)
     errs = {}
     g = SCANNET_MODEL["grid"]
     fine_cell = g["base_cell_size"] / g["per_level_scale"]
     cases = [("fine_F4", g["bound"], fine_cell, 4),
              ("coarse_F4", g["bound"], g["base_cell_size"], 4),
              ("base_F1", [[-1.0, 1.0]] * 3, 1.0, 1),
-             ("coarse_F12", g["bound"], g["base_cell_size"], 12)]
+             ("coarse_F12", g["bound"], g["base_cell_size"], 12),
+             ("coarse_F36", g["bound"], g["base_cell_size"], 36)]
     dev = torch.device("cuda")
     with torch.no_grad():
         for seed, (name, bl, cell, fdim) in enumerate(cases, start=10):
             grid, x, bound = _grid_case(bl, cell, fdim, N_POINTS, seed)
-            log(f"  interp {name}: grid {tuple(grid.shape)}, {N_POINTS} points")
+            copies = interp_grad_copies(grid.shape[:3], fdim, N_POINTS)
+            log(f"  interp {name}: grid {tuple(grid.shape)}, {N_POINTS} points, "
+                f"grad kernel on {copies} copies of the table")
             _check_values(f"interp_{name}", grid_interpolate_cuda(grid, x, bound),
                           grid_interpolate_plain(grid, x, bound), errs)
-            gen = torch.Generator(device=dev).manual_seed(seed + 100)
-            cot = torch.randn((N_POINTS, fdim), generator=gen, device=dev)
-            d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, cot)
-            r_grid, r_x = grid_interpolate_grad_plain(grid, x, bound, cot)
-            _check_grad(f"interp_grad_{name}_table", d_grid, r_grid, errs)
-            _check_grad(f"interp_grad_{name}_points", d_x, r_x, errs)
-            d_grid_only, none = grid_interpolate_grad_cuda(grid, x, bound, cot,
-                                                           need_x=False)
-            check(none is None, "need_x=False returned a points' gradient")
-            _check_grad(f"interp_grad_{name}_table_only", d_grid_only, r_grid, errs)
-        # Padded storage with a logical size, as the fused kernel takes it.
-        grid, x, bound = _grid_case(g["bound"], g["base_cell_size"], 4, N_POINTS, 20)
-        padded = 10.0 * torch.randn((grid.shape[0] + 3, grid.shape[1] + 2,
-                                     grid.shape[2] + 1, 4), device=dev)
-        padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
-        size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
-        _check_values("interp_sized_vs_unpadded",
-                      grid_interpolate_cuda(padded, x, bound, size),
-                      grid_interpolate_plain(grid, x, bound), errs)
+            _interp_grad_check(name, grid, x, bound, None, errs, seed + 100)
 
-        # Times at the ScanNet fine level (the larger of the two per-level calls).
-        grid, x, bound = _grid_case(g["bound"], fine_cell, 4, N_POINTS, 10)
-        cot = torch.randn((N_POINTS, 4), generator=torch.Generator(device=dev)
-                          .manual_seed(110), device=dev)
+        # The fine level again: all points in one cell, and all in 16^3 cells.
+        grid, x, bound = _grid_case(g["bound"], fine_cell, 4, N_POINTS, 15)
+        lo, ext = bound[:, 0], bound[:, 1] - bound[:, 0]
+        dims = torch.tensor(grid.shape[:3], device=dev, dtype=torch.float32)
+        u = torch.rand((N_POINTS, 3), generator=torch.Generator(device=dev).manual_seed(16),
+                       device=dev)
+        for name, cells in (("one_cell", (torch.tensor([50.0, 40.0, 15.0], device=dev) + 0.6
+                                          + 0.8 * u) / dims),
+                            ("dense_region", (24.0 + 16.0 * u) / dims)):
+            _interp_grad_check(f"fine_{name}", grid, (lo + cells * ext).contiguous(), bound,
+                               None, errs, 17)
+        # No point and one point.
+        for n in (0, 1):
+            _interp_grad_check(f"fine_n{n}", grid, x[:n].contiguous(), bound, None, errs, 18)
+
+        # Padded storage with a logical size, as the fused kernel takes it, at
+        # F = 1 (scalar rows), 4 and 12: the forward against the plain version
+        # on the unpadded grid, the grad against the plain one on the padding.
+        for fdim in (1, 4, 12):
+            grid, x, bound = _grid_case(g["bound"], g["base_cell_size"], fdim, N_POINTS,
+                                        20 + fdim)
+            padded = 10.0 * torch.randn((grid.shape[0] + 3, grid.shape[1] + 2,
+                                         grid.shape[2] + 1, fdim), device=dev)
+            padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
+            size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
+            _check_values(f"interp_sized_F{fdim}_vs_unpadded",
+                          grid_interpolate_cuda(padded, x, bound, size),
+                          grid_interpolate_plain(grid, x, bound), errs)
+            _interp_grad_check(f"coarse_sized_F{fdim}", padded, x, bound, size, errs,
+                               40 + fdim)
+
+    # Times at the shapes of the kernels' paths: the call by CUDA events (what
+    # a caller waits for), the device time of all its kernels and memsets
+    # (profiler); the plain version; grid_sample forward and backward.
+    times = {}
+    for seed, (name, bl, cell, n) in enumerate(INTERP_SHAPES, start=60):
+        grid, x, bound = _grid_case(bl, cell, 4, n, seed)
+        cot = torch.randn((n, 4), generator=torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
         vol, coords = _grid_sample_inputs(grid, x, bound)
-        lib_out = _grid_sample(vol, coords).reshape(4, -1).T
-        lib_err = _max_err(lib_out, grid_interpolate_plain(grid, x, bound))
-        log(f"  grid_sample (yardstick only): max |grid_sample - plain| = {lib_err:.3e}")
-        fwd = dict(ms=cuda_ms(lambda: grid_interpolate_cuda(grid, x, bound)),
-                   plain_ms=cuda_ms(lambda: grid_interpolate_plain(grid, x, bound)),
-                   library_ms=cuda_ms(lambda: _grid_sample(vol, coords)))
-        fwd["bound_ms"], fwd["bound_by"] = _bound(
-            (x.numel() + cot.numel() + grid.numel() + bound.numel()) * 4,
-            2.0 * 8 * 4 * N_POINTS)
-        bwd = dict(
-            ms=cuda_ms(lambda: grid_interpolate_grad_cuda(grid, x, bound, cot,
-                                                          need_x=False)),
-            plain_ms=cuda_ms(lambda: grid_interpolate_grad_plain(grid, x, bound, cot,
-                                                                 need_x=False)),
-            points_ms=cuda_ms(lambda: grid_interpolate_grad_cuda(grid, x, bound, cot)))
-    vol_r = vol.clone().requires_grad_()
-    out = _grid_sample(vol_r, coords)
-    gout = cot.T.reshape(out.shape).contiguous()
-    bwd["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, vol_r, gout,
-                                                            retain_graph=True))
-    bwd["bound_ms"], bwd["bound_by"] = _bound(
-        (x.numel() + cot.numel() + grid.numel() + bound.numel()) * 4,
-        2.0 * 8 * 4 * N_POINTS)
-    for name, t in (("interp forward", fwd), ("interp grad (table only)", bwd)):
-        log(f"  {name} at the fine level {tuple(grid.shape)}, {N_POINTS} points: "
-            f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, grid_sample "
-            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
-    log(f"  interp grad with the points' gradient: kernel {bwd['points_ms']:.4f} ms")
-    return errs, fwd, bwd
-
+        rec = {"grid": list(grid.shape), "points": n,
+               "copies": interp_grad_copies(grid.shape[:3], 4, n)}
+        with torch.no_grad():
+            rec["fwd"] = dict(ms=cuda_ms(lambda: grid_interpolate_cuda(grid, x, bound)),
+                              plain_ms=cuda_ms(lambda: grid_interpolate_plain(grid, x, bound)),
+                              library_ms=cuda_ms(lambda: _grid_sample(vol, coords)))
+            rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = _interp_bounds(grid, x, False)
+            for key, need_x in (("grad", False), ("grad_x", True)):
+                call = lambda: grid_interpolate_grad_cuda(grid, x, bound, cot, need_x=need_x)
+                rec[key] = dict(
+                    ms=cuda_ms(call), device_ms=_kernel_device_ms(call),
+                    plain_ms=cuda_ms(lambda: grid_interpolate_grad_plain(
+                        grid, x, bound, cot, need_x=need_x)))
+                rec[key]["bound_ms"], rec[key]["bound_by"] = _interp_bounds(grid, x, need_x)
+        # grid_sample's backward: the table's gradient, and the points' too.
+        vol_r = vol.clone().requires_grad_()
+        coords_r = coords.clone().requires_grad_()
+        out = _grid_sample(vol_r, coords_r)
+        gout = cot.T.reshape(out.shape).contiguous()
+        rec["grad"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, vol_r, gout, retain_graph=True))
+        rec["grad_x"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+            out, [vol_r, coords_r], gout, retain_graph=True))
+        times[name] = rec
+        log(f"  {name} {tuple(grid.shape)}, {n} points, grad on {rec['copies']} copies: " +
+            "; ".join(f"{k} call {v['ms']:.4f} ms" +
+                      (f" (device {v['device_ms']:.4f})" if "device_ms" in v else "") +
+                      f", plain {v['plain_ms']:.4f}, grid_sample {v['library_ms']:.4f}, "
+                      f"bound {v['bound_ms']:.4f} ({v['bound_by']})"
+                      for k, v in ((k, rec[k]) for k in ("fwd", "grad", "grad_x"))))
+    return errs, times
 
 def _decode_bounds(params, n):
     """(ms, what bounds it) of one decode call of n points, and the FP32 SIMT
@@ -429,9 +517,9 @@ def _decode_bounds(params, n):
     return tc, simt
 
 
-def _kernel_device_ms(fn, kernel_name, calls=TIMED_CALLS):
-    """Mean device milliseconds per launch of the kernels whose name contains
-    ``kernel_name``, over ``calls`` calls of fn under torch.profiler: the
+def _device_events(fn, calls=TIMED_CALLS):
+    """(name, device microseconds) of every kernel and memset that ``calls``
+    calls of fn ran under torch.profiler, after 3 calls of warm-up: the
     device's own time, without the host's launch cost in it."""
     for _ in range(3):
         fn()
@@ -440,9 +528,18 @@ def _kernel_device_ms(fn, kernel_name, calls=TIMED_CALLS):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
-    check(len(us) == calls, f"profiler saw {len(us)} {kernel_name} launches in {calls} calls")
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernel_device_ms(fn, kernel_name=None, calls=TIMED_CALLS):
+    """Mean device milliseconds per launch of the kernels whose name contains
+    ``kernel_name`` (or per call, of every kernel and memset fn runs, when
+    None), over ``calls`` calls of fn (:func:`_device_events`)."""
+    us = [t for name, t in _device_events(fn, calls)
+          if kernel_name is None or kernel_name in name]
+    check(len(us) == calls or (kernel_name is None and us),
+          f"profiler saw {len(us)} {kernel_name} launches in {calls} calls")
     return sum(us) / calls / 1e3
 
 
@@ -554,7 +651,7 @@ def phase_function_grads():
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: the main path (fused kernel).
+# Phase 3: the main path (bench.py's default-decode step, then the fused one).
 # ---------------------------------------------------------------------------
 
 def mapping_batches(n, k, device):
@@ -574,9 +671,32 @@ def mapping_batches(n, k, device):
     return out
 
 
-def phase_main_path(counter):
-    """Returns the step report; ``counter`` is the kernel wrapper whose
-    ``launches`` this phase zeroes and reads."""
+def kernel_counters():
+    """Each kernel wrapper whose ``launches`` a path zeroes and reads."""
+    from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda, mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
+    return {"interp": grid_interpolate_cuda, "interp_grad": grid_interpolate_grad_cuda,
+            "decode": mlp_decode_cuda, "fused": fused_interp_decode_cuda}
+
+
+def _zero_counts(counters):
+    from miso_tpu_torch.ops.tiled_interp import _GridInterp
+    for fn in counters.values():
+        fn.launches = 0
+    _GridInterp.recomputes = 0
+
+
+def _read_counts(counters):
+    from miso_tpu_torch.ops.tiled_interp import _GridInterp
+    out = {k: fn.launches for k, fn in counters.items()}
+    out["interp_recompute_backward"] = _GridInterp.recomputes
+    return out
+
+
+def run_mapping_steps(cfg, timed_steps, per_step):
+    """bench.py's mapping train step on ``cfg`` for WARMUP_STEPS + timed_steps
+    steps; each kernel must launch exactly ``per_step[name]`` times a step.
+    Returns the step report."""
     from miso_tpu_torch.losses.common import total_loss
     from miso_tpu_torch.losses.miso import make_loss, mapping_loss
     from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
@@ -584,9 +704,8 @@ def phase_main_path(counter):
     from miso_tpu_torch.train.trainer import make_train_step
 
     dev = torch.device("cuda")
-    model = create_grid_net(SCANNET_MODEL, generator=torch.Generator().manual_seed(0),
-                            device=dev)
-    check(model.decode_impl == "pallas", "main path must run the fused kernel")
+    counters = kernel_counters()
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0), device=dev)
     batches = mapping_batches(N_POINTS, 4, dev)
     loss_fn = make_loss(mapping_loss, **MAPPING_HYPER)
     step = make_train_step(loss_fn, "adam")
@@ -603,12 +722,12 @@ def phase_main_path(counter):
     del plain_model
     torch.cuda.synchronize()
 
-    n_steps = WARMUP_STEPS + TIMED_STEPS
+    n_steps = WARMUP_STEPS + timed_steps
     events = [(torch.cuda.Event(enable_timing=True),
                torch.cuda.Event(enable_timing=True)) for _ in range(n_steps)]
     losses = []
     torch.cuda.reset_peak_memory_stats()
-    counter.launches = 0
+    _zero_counts(counters)
     t0 = time.perf_counter()
     for i in range(n_steps):
         events[i][0].record()
@@ -618,14 +737,15 @@ def phase_main_path(counter):
         losses.append(tl)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = counter.launches
+    launches = _read_counts(counters)
     losses = [float(v) for v in losses]
     step_ms = np.array([s.elapsed_time(e) for s, e in events[WARMUP_STEPS:]])
 
     check(all(np.isfinite(losses)), f"non-finite loss: {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: first {losses[0]}, last {losses[-1]}")
-    check(launches == n_steps,
-          f"kernel launched {launches} times in {n_steps} steps; expected one per step")
+    for name, per in {**per_step, "interp_recompute_backward": 0}.items():
+        check(launches[name] == per * n_steps,
+              f"{name}: {launches[name]} launches in {n_steps} steps; expected {per} per step")
     rel = abs(losses[0] - plain_first) / abs(plain_first)
     check(rel <= 1e-5, f"first step loss {losses[0]!r} vs the plain CPU model's "
           f"{plain_first!r}: relative difference {rel:.3e} > 1e-5")
@@ -635,11 +755,26 @@ def phase_main_path(counter):
         loss_first_plain_cpu=plain_first, loss_first_rel_diff=rel,
         step_ms_median=median, step_ms_p10=float(np.percentile(step_ms, 10)),
         points_per_s=N_POINTS / (median * 1e-3), wall_s_all_steps=wall,
+        wall_ms_per_step=wall * 1e3 / n_steps,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
-    log(f"  losses: first {losses[0]:.6f} (plain CPU model {plain_first:.6f}, rel diff "
-        f"{rel:.2e}), last {losses[-1]:.6f}; kernel launches {launches} in "
-        f"{n_steps} steps")
+    log(f"  step {median:.3f} ms median, {report['step_ms_p10']:.3f} ms p10 (CUDA events), "
+        f"{report['wall_ms_per_step']:.3f} ms of wall time a step; losses: first "
+        f"{losses[0]:.6f} (plain CPU model {plain_first:.6f}, rel diff {rel:.2e}), last "
+        f"{losses[-1]:.6f}; launches in {n_steps} steps {launches}")
     return report
+
+
+def phase_main_path():
+    """bench.py's step as bench.py and configs/ have it (the default decode:
+    per step the interp kernel twice, the interp grad kernel twice, the decode
+    kernel once), then the same step on the fused kernel (once per step)."""
+    log("  default decode (bench.py, configs/):")
+    default = run_mapping_steps(SCANNET_MODEL, TIMED_STEPS,
+                                {"interp": 2, "interp_grad": 2, "decode": 1, "fused": 0})
+    log("  decoder.impl \"pallas\" (the fused kernel):")
+    fused = run_mapping_steps(SCANNET_MODEL_FUSED, FUSED_TIMED_STEPS,
+                              {"interp": 0, "interp_grad": 0, "decode": 0, "fused": 1})
+    return default, fused
 
 
 # ---------------------------------------------------------------------------
@@ -726,25 +861,11 @@ def phase_mesh():
     from miso_tpu_torch.losses.sdf import tsdf_loss_3d
     from miso_tpu_torch.models.grid_net import create_grid_net
     from miso_tpu_torch.native import TriangleMesh, marching_cubes
-    from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda, mlp_decode_cuda
-    from miso_tpu_torch.ops.tiled_interp import (
-        _GridInterp, grid_interpolate_cuda, grid_interpolate_grad_cuda)
     from miso_tpu_torch.train.trainer import GridTrainer
     from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics
     from miso_tpu_torch.utils.sdf import extract_fields, save_mesh
 
-    counters = {"interp": grid_interpolate_cuda, "interp_grad": grid_interpolate_grad_cuda,
-                "decode": mlp_decode_cuda, "fused": fused_interp_decode_cuda}
-
-    def zero_counts():
-        for fn in counters.values():
-            fn.launches = 0
-        _GridInterp.recomputes = 0
-
-    def read_counts():
-        out = {k: fn.launches for k, fn in counters.items()}
-        out["interp_recompute_backward"] = _GridInterp.recomputes
-        return out
+    counters = kernel_counters()
 
     t0 = time.perf_counter()
     verts, tris = room_scene(4.0)
@@ -774,12 +895,12 @@ def phase_mesh():
     trainer.step_fn = timed_step
     epochs = MESH_TRAIN["epochs"]
     torch.cuda.synchronize()
-    zero_counts()
+    _zero_counts(counters)
     t0 = time.perf_counter()
     model = trainer.train()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_counts = read_counts()
+    train_counts = _read_counts(counters)
     losses = [float(v) for v in totals]
     check(len(losses) == epochs, f"{len(losses)} steps for {epochs} epochs")
     check(all(np.isfinite(losses)), "non-finite training loss")
@@ -794,11 +915,11 @@ def phase_mesh():
     # The mesh through the user's entry point, counted; then its two stages
     # again, timed apart.
     torch.cuda.synchronize()
-    zero_counts()
+    _zero_counts(counters)
     t0 = time.perf_counter()
     mesh = save_mesh(model, model.bound, None, resolution=MESH_RESOLUTION)
     mesh_s = time.perf_counter() - t0
-    lattice_counts = read_counts()
+    lattice_counts = _read_counts(counters)
     chunks = -(-MESH_RESOLUTION ** 3 // MESH_CHUNK)
     check(len(mesh.vertices) > 1000, f"marching cubes gave {len(mesh.vertices)} vertices")
     b = ds.bound.astype(np.float32)
@@ -856,10 +977,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     from miso_tpu_torch import native
     from miso_tpu_torch.ops import _build
-    from miso_tpu_torch.ops.fused_decode import (_library, fused_interp_decode_cuda,
-                                                 mlp_decode_cuda)
-    from miso_tpu_torch.ops.tiled_interp import (
-        _library as _interp_library, grid_interpolate_cuda, grid_interpolate_grad_cuda)
+    from miso_tpu_torch.ops.fused_decode import _library
+    from miso_tpu_torch.ops.tiled_interp import _library as _interp_library
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -886,15 +1005,15 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     errs, times = phase_kernels()
-    interp_errs, interp_t, grad_t = phase_interp_kernels()
+    interp_errs, interp_times = phase_interp_kernels()
     decode_errs, decode_t = phase_decode_kernel()
     grad2_errs = phase_function_grads()
     errs.update(interp_errs)
     errs.update(decode_errs)
     errs.update(grad2_errs)
 
-    log("phase 3: main path (mapping train step, fused kernel)")
-    main_report = phase_main_path(fused_interp_decode_cuda)
+    log("phase 3: main path (bench.py's mapping train step: default decode, then fused)")
+    main_report, fused_report = phase_main_path()
 
     log("phase 4: synthetic mesh path (default decode)")
     mesh_report, mesh_errs = phase_mesh()
@@ -902,11 +1021,14 @@ def main() -> int:
 
     log("phase 5: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
-                      "decode_kernel": decode_t, "main_path": main_report,
+                      "interp_kernels": interp_times, "decode_kernel": decode_t,
+                      "main_path": main_report, "main_path_fused": fused_report,
                       "mesh_path": mesh_report}), flush=True)
 
-    def mesh_launches(name):
-        return (mesh_report["train_launches"][name]
+    def launches(name):
+        """The launches on the paths that run the kernel: phase 3's
+        default-decode run and phase 4's training and lattice."""
+        return (main_report["launches"][name] + mesh_report["train_launches"][name]
                 + mesh_report["lattice_launches"][name])
 
     def entry(name, source, replaces, launches, err, t):
@@ -920,19 +1042,28 @@ def main() -> int:
         ScanNet widths of phase 2 and the mesh path's own of phase 4."""
         return max(v for k, v in errs.items() if k.startswith(prefixes))
 
+    fine, coarse = interp_times["scannet_fine"], interp_times["scannet_coarse"]
+    # The grad kernel's entry: the fine level's table-only call; beside it the
+    # call with the points' gradient (the default-decode step's) and the
+    # coarse level's table-only call, which spreads its atomics over copies.
+    backward = entry("grid_interp_backward", "miso_tpu_torch/csrc/grid_interp.cu",
+                     "miso_tpu/ops/pallas_interp.py:268", launches("interp_grad"),
+                     worst("interp_grad_fine_F4", "interp_grad_coarse_F4", "mesh_grad_"),
+                     fine["grad"])
+    backward.update(points_grad_ms=fine["grad_x"]["ms"],
+                    points_grad_bound_ms=fine["grad_x"]["bound_ms"],
+                    coarse_ms=coarse["grad"]["ms"], coarse_bound_ms=coarse["grad"]["bound_ms"],
+                    coarse_copies=coarse["copies"])
     kernels = [
         entry("fused_interp_decode", "miso_tpu_torch/csrc/fused_interp_decode.cu",
-              "miso_tpu/ops/pallas_decode.py:186", main_report["launches"],
+              "miso_tpu/ops/pallas_decode.py:186", fused_report["launches"]["fused"],
               errs["scannet"], times),
         entry("grid_interp_forward", "miso_tpu_torch/csrc/grid_interp.cu",
-              "miso_tpu/ops/pallas_interp.py:196", mesh_launches("interp"),
-              worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_"), interp_t),
-        entry("grid_interp_backward", "miso_tpu_torch/csrc/grid_interp.cu",
-              "miso_tpu/ops/pallas_interp.py:268", mesh_launches("interp_grad"),
-              worst("interp_grad_fine_F4", "interp_grad_coarse_F4", "mesh_grad_"),
-              grad_t),
+              "miso_tpu/ops/pallas_interp.py:196", launches("interp"),
+              worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_"), fine["fwd"]),
+        backward,
         entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
-              "miso_tpu/ops/pallas_decode.py:107", mesh_launches("decode"),
+              "miso_tpu/ops/pallas_decode.py:107", launches("decode"),
               worst("decode_scannet", "mesh_decode_"), decode_t),
     ]
     tpu_kernels = [

@@ -25,13 +25,22 @@ struct MttAxes {
   float scale[3];  // du/dx = n / (hi - lo)
 };
 
+// With round_each_op, u is rounded op by op, as the reference rounds it: a
+// multiply and subtract contracted into one FMA can put a point on a cell
+// face (u an exact integer there) in the cell below, which moves the
+// interpolated value by an ulp but the points' gradient, which jumps across
+// the face, by a whole step.  grid_interp.cu rounds each op; the fused
+// kernel, whose gradient is a recompute in torch ops, keeps the FMA.
 __device__ __forceinline__ void mtt_axes(const float xp[3], const float lo[3],
                                          const float ext[3], const int dims[3],
-                                         const int32_t* size, MttAxes& a) {
+                                         const int32_t* size, MttAxes& a,
+                                         bool round_each_op = false) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int nk = size != nullptr ? size[k] : dims[k];
-    const float u = (xp[k] - lo[k]) / ext[k] * (float)nk - 0.5f;
+    const float u = round_each_op
+        ? __fsub_rn(__fmul_rn(__fdiv_rn(__fsub_rn(xp[k], lo[k]), ext[k]), (float)nk), 0.5f)
+        : (xp[k] - lo[k]) / ext[k] * (float)nk - 0.5f;
     const float f0 = floorf(u);
     a.i0[k] = (int)f0;
     a.fr[k] = u - f0;

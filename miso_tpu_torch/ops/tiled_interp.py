@@ -10,10 +10,13 @@ this module computes, in the caller's point order:
 
   * :func:`grid_interpolate_cuda` and :func:`grid_interpolate_grad_cuda`,
     the wrappers of the CUDA kernels in ``csrc/grid_interp.cu`` (forward;
-    grid gradient by atomics plus, when asked, the points' gradient).  They
+    backward: the grid's gradient by float4 atomics, spread over L2-resident
+    copies of a small table, plus, when asked, the points' gradient).  They
     validate their inputs, launch on PyTorch's current stream, count their
-    launches in ``.launches`` and raise on what the kernels do not take.
-    They never fall back.
+    calls in ``.launches`` and raise on what the kernels do not take.  They
+    never fall back.
+  * :func:`interp_grad_copies`, how many copies of the table the backward
+    spreads its atomics over, computed here and handed to the kernels.
   * :func:`grid_interpolate_plain` (``ops/interp.py::grid_interpolate``) and
     :func:`grid_interpolate_grad_plain` (an ``index_add_`` scatter plus the
     analytic points' gradient): the kernels' plain versions, used for CPU
@@ -41,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import itertools
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -57,15 +61,44 @@ class _InterpArgs(ctypes.Structure):
                 ("vec4", ctypes.c_int)]
 
 
+class _GradPlanArgs(ctypes.Structure):
+    """``MttGradPlan`` of ``csrc/grid_interp.cu``: the copies and their scratch."""
+    _fields_ = [("copies", ctypes.c_int), ("partial", ctypes.c_void_p)]
+
+
+# The grad kernel spreads its atomics over copies of the table where each row
+# takes many of them: one copy per ATOMICS_PER_COPY atomics a row (8 per point
+# over the table's rows), at most MAX_COPIES and all within COPY_BUDGET bytes
+# (the H100's L2 holds 50 MB).  Otherwise it has one copy, the gradient itself.
+ATOMICS_PER_COPY = 64
+MAX_COPIES = 64
+COPY_BUDGET = 8 << 20
+
+
+@functools.lru_cache(maxsize=256)
+def interp_grad_copies(dims: Sequence[int], fdim: int, n: int) -> int:
+    """How many copies of a (dims..., fdim) table the grad kernel's atomics for
+    n points are spread over: block b of 256 points adds into copy
+    ``b % copies``, and the copies are then summed into the gradient (cached:
+    the wrapper asks at every call)."""
+    rows = math.prod(int(d) for d in dims)
+    copies = min(MAX_COPIES, COPY_BUDGET // (4 * rows * fdim),
+                 8 * n // (rows * ATOMICS_PER_COPY))
+    return max(1, copies)
+
+
 @functools.cache
 def _library():
     from miso_tpu_torch.ops._build import load_library
     lib = load_library("grid_interp")
     lib.mtt_error_string.argtypes = [ctypes.c_int]
     lib.mtt_error_string.restype = ctypes.c_char_p
-    for name in ("mtt_grid_interp_forward", "mtt_grid_interp_backward"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_int, ctypes.c_void_p]
+    lib.mtt_grid_interp_forward.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_int,
+                                            ctypes.c_void_p]
+    lib.mtt_grid_interp_backward.argtypes = [ctypes.POINTER(_InterpArgs),
+                                             ctypes.POINTER(_GradPlanArgs), ctypes.c_int,
+                                             ctypes.c_void_p]
+    for fn in (lib.mtt_grid_interp_forward, lib.mtt_grid_interp_backward):
         fn.restype = ctypes.c_int
     return lib
 
@@ -115,10 +148,11 @@ def _pack(grid, x, bound, size, out, g=None, gx=None):
     return a
 
 
-def _launch(name, a, device):
+def _launch(name, device, *structs):
     lib = _library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    code = getattr(lib, name)(ctypes.byref(a), device.index, ctypes.c_void_p(stream))
+    code = getattr(lib, name)(*(ctypes.byref(s) for s in structs), device.index,
+                              ctypes.c_void_p(stream))
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.mtt_error_string(code).decode())
@@ -134,7 +168,7 @@ def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tens
     _check(grid, x, bound, size)
     out = torch.empty((x.shape[0], grid.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    _launch("mtt_grid_interp_forward", _pack(grid, x, bound, size, out), x.device)
+    _launch("mtt_grid_interp_forward", x.device, _pack(grid, x, bound, size, out))
     grid_interpolate_cuda.launches += 1
     return out
 
@@ -146,18 +180,27 @@ def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
                                bound: torch.Tensor, g: torch.Tensor,
                                size: Optional[torch.Tensor] = None,
                                need_x: bool = True):
-    """Launch the backward kernel for cotangent ``g`` (N, F).
+    """Launch the backward kernel for cotangent ``g`` (N, F), its atomics
+    spread over the copies of :func:`interp_grad_copies` (one count in
+    ``.launches`` per call).
 
     Returns (d_grid (X, Y, Z, F), d_x (N, 3) or None when ``need_x`` is
     false).  d_grid is scattered with atomics, so its float32 sums run in an
     order that varies from run to run.
     """
     _check(grid, x, bound, size, g)
-    d_grid = torch.zeros_like(grid)
+    n_copies = interp_grad_copies(grid.shape[:3], grid.shape[-1], x.shape[0])
+    d_grid = torch.empty_like(grid)
     d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
            if need_x else None)
-    _launch("mtt_grid_interp_backward", _pack(grid, x, bound, size, d_grid, g, d_x),
-            x.device)
+    copies = _GradPlanArgs(n_copies, None)
+    if n_copies > 1:
+        # Freed on return, while the kernels may still run: PyTorch's caching
+        # allocator hands the block out again only in this stream's order.
+        partial = torch.empty(n_copies * grid.numel(), dtype=torch.float32, device=x.device)
+        copies.partial = partial.data_ptr()
+    _launch("mtt_grid_interp_backward", x.device,
+            _pack(grid, x, bound, size, d_grid, g, d_x), copies)
     grid_interpolate_grad_cuda.launches += 1
     return d_grid, d_x
 

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's steps spend their device time, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [mapping|mesh|all]
+    python3 scripts/profile_torch_step.py [mapping|mesh|all] [--steps N] [--root DIR]
 
-``mapping`` (the default): chip_smoke.py's main path (ScanNet widths,
-decoder.impl "pallas", 1e6-point batches, masked Adam): 3 warm-up steps, 5
-steps unprofiled, then 5 steps under torch.profiler (CPU and CUDA activity);
-then the same step with GridNet's default decode (decoder.impl "xla": the
-interp, interp grad and decode kernels).
+``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
+step (ScanNet widths, 1e6-point batches, masked Adam), first with
+decoder.impl "pallas" (the fused kernel), then with GridNet's default decode
+(decoder.impl "xla": the interp, interp grad and decode kernels), as bench.py
+and configs/ run it: each 3 warm-up steps, N steps unprofiled (default 5),
+then N steps under torch.profiler (CPU and CUDA activity).  ``--root``
+(default: this checkout) is the checkout whose package is profiled, with this
+checkout's chip_smoke, so that another commit unpacked beside this one runs
+the same steps in the same call.
 
 ``mesh``: chip_smoke.py's synthetic mesh path (room_scene, Sdf3D with 2^15
 points per batch, GridTrainer with tsdf_loss_3d and the autograd eikonal,
@@ -21,6 +25,7 @@ window), the kernels by device time with their share, and the aten
 operators by the device time of the kernels they launched.  Imports torch,
 numpy, chip_smoke and miso_tpu_torch.
 """
+import argparse
 import os
 import sys
 import time
@@ -70,7 +75,7 @@ def breakdown(label, run, steps):
               f"{e.key}")
 
 
-def profile_mapping(chip_smoke, impl):
+def profile_mapping(chip_smoke, impl, steps):
     from miso_tpu_torch.losses.miso import make_loss, mapping_loss
     from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
     from miso_tpu_torch.train.optim import masked_adam_init
@@ -92,7 +97,7 @@ def profile_mapping(chip_smoke, impl):
 
     run(3)
     torch.cuda.synchronize()
-    breakdown(f"mapping train step (decoder.impl {impl!r}, 1e6 points)", run, 5)
+    breakdown(f"mapping train step (decoder.impl {impl!r}, 1e6 points)", run, steps)
 
 
 def profile_mesh(chip_smoke):
@@ -137,18 +142,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
-    which = sys.argv[1] if len(sys.argv) > 1 else "mapping"
-    if which not in ("mapping", "mesh", "all"):
-        print(f"profile_torch_step: unknown path {which!r}", file=sys.stderr)
-        return 2
+    ap = argparse.ArgumentParser()
+    ap.add_argument("which", nargs="?", default="mapping", choices=("mapping", "mesh", "all"))
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--root", default=ROOT)
+    args = ap.parse_args()
     import chip_smoke
+    sys.path.insert(0, os.path.abspath(args.root))
+    which = args.which
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(chip_smoke.card_line(), flush=True)
     if which in ("mapping", "all"):
         for impl in ("pallas", "xla"):
-            profile_mapping(chip_smoke, impl)
+            profile_mapping(chip_smoke, impl, args.steps)
     if which in ("mesh", "all"):
         profile_mesh(chip_smoke)
     return 0

@@ -117,26 +117,99 @@ def test_grid_net_pallas_matches_xla_and_counts(dev):
         torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=1e-5)
 
 
-@pytest.mark.parametrize("fdim", [1, 4, 12])
-def test_interp_kernels_match_plain(dev, fdim):
+SCANNET_BOUND = [[-0.02, 10.38], [-0.01, 8.74], [-0.01, 3.03]]
+# The interp kernels' cases: (grid shape, points, where the points lie).  "F1",
+# "F4", "F12", "F36": the second level of _case's grids, whose rows take
+# enough atomics for the grad kernel's copies; a 45-row F = 1 table (copies
+# summed one float at a time); the ScanNet coarse level at 1e6 points (47
+# copies); F = 1 and 12 on a larger grid (one copy); all points in one cell;
+# 1e6 points in 16^3 cells of the ScanNet fine level; a grid of 7e6 rows;
+# storage padded beyond a logical size at F = 1, 4 and 12; no point and one
+# point; a point on a cell face of the ScanNet coarse level (u = 16 exactly
+# on axis 1 when rounded op by op, 15.99999 through a fused multiply-add).
+INTERP_CASES = {
+    "F1": ((10, 8, 6, 1), 20000, "spread"), "F4": ((10, 8, 6, 4), 20000, "spread"),
+    "F12": ((10, 8, 6, 12), 20000, "spread"), "F36": ((10, 8, 6, 36), 20000, "spread"),
+    "scannet_coarse_1e6": ((21, 18, 7, 4), 10 ** 6, "spread"),
+    "F1_odd": ((5, 3, 3, 1), 20000, "spread"),
+    "F1_large": ((40, 36, 30, 1), 20000, "spread"),
+    "F12_large": ((40, 36, 30, 12), 20000, "spread"),
+    "one_cell": ((40, 36, 30, 4), 20000, "one_cell"),
+    "dense_region_1e6": ((105, 88, 31, 4), 10 ** 6, "dense_region"),
+    "large_grid": ((240, 240, 120, 4), 200000, "spread"),
+    "padded": ((10, 8, 6, 4), 20000, "padded"),
+    "padded_F1": ((10, 8, 6, 1), 20000, "padded"),
+    "padded_F12": ((10, 8, 6, 12), 20000, "padded"),
+    "n0": ((10, 8, 6, 4), 0, "spread"), "n1": ((10, 8, 6, 4), 1, "spread"),
+    "n0_large": ((40, 36, 30, 4), 0, "spread"), "n1_large": ((40, 36, 30, 4), 1, "spread"),
+    "on_face": ((21, 18, 7, 4), 20000, "on_face"),
+}
+ON_FACE = [1.4275164604187012, 8.010832786560059, 0.1370464414358139]
+
+
+def _interp_case(dev, name):
+    """(grid, x, bound, size, unpadded): points 5 % beyond the bound, or as
+    the case says; ``unpadded`` is the grid without its padding, or None."""
+    shape, n, where = INTERP_CASES[name]
+    gen = torch.Generator(device=dev).manual_seed(len(name) + n)
+    scannet = shape[:3] in ((21, 18, 7), (105, 88, 31))
+    bound = torch.tensor(SCANNET_BOUND if scannet else [[-1.0, 1.0], [-1.0, 1.2], [-0.8, 1.0]],
+                         device=dev)
+    lo, ext = bound[:, 0], bound[:, 1] - bound[:, 0]
+    dims = torch.tensor(shape[:3], device=dev, dtype=torch.float32)
+    grid = torch.randn(shape, generator=gen, device=dev)
+    u = torch.rand((n, 3), generator=gen, device=dev)
+    if where == "one_cell":
+        u = (torch.tensor([17.0, 5.0, 22.0], device=dev) + 0.5 + 0.1 + 0.8 * u) / dims
+    elif where == "dense_region":   # 16^3 cells: some 240 points a cell
+        u = (24.0 + 16.0 * u) / dims
+    else:
+        u = -0.05 + 1.1 * u
+    size, unpadded = None, None
+    if where == "padded":
+        padded = torch.randn((shape[0] + 2, shape[1] + 1, shape[2] + 3, shape[3]),
+                             generator=gen, device=dev)
+        padded[:shape[0], :shape[1], :shape[2]] = grid
+        unpadded, grid = grid, padded
+        size = torch.tensor(shape[:3], dtype=torch.int32, device=dev)
+    x = lo + u * ext
+    if where == "on_face":
+        x[0] = torch.tensor(ON_FACE, device=dev)
+        assert float((x[0, 1] - lo[1]) / ext[1] * shape[1] - 0.5) == 16.0
+    return grid, x.contiguous(), bound, size, unpadded
+
+
+def _grad_close(got, ref):
+    assert got.shape == ref.shape
+    if ref.numel():
+        assert float((got - ref).abs().max()) <= 1e-4 * max(float(ref.abs().max()), 1e-6)
+
+
+@pytest.mark.parametrize("case", list(INTERP_CASES), ids=list(INTERP_CASES))
+def test_interp_kernels_match_plain(dev, case):
     from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
                                                  grid_interpolate_grad_cuda,
                                                  grid_interpolate_grad_plain,
                                                  grid_interpolate_plain)
-    grids, x, bound, _ = _case(dev, 2, fdim, 16, 0, 1, n=20000, seed=fdim)
-    grid = grids[1]
-    torch.testing.assert_close(grid_interpolate_cuda(grid, x, bound),
-                               grid_interpolate_plain(grid, x, bound), atol=1e-4, rtol=1e-4)
-    g = torch.randn((x.shape[0], fdim), device=dev)
-    for got, ref in zip(grid_interpolate_grad_cuda(grid, x, bound, g),
-                        grid_interpolate_grad_plain(grid, x, bound, g)):
-        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
-    padded = torch.randn((grid.shape[0] + 2, grid.shape[1] + 1, grid.shape[2] + 3, fdim),
-                         device=dev)
-    padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
-    size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
-    torch.testing.assert_close(grid_interpolate_cuda(padded, x, bound, size),
-                               grid_interpolate_plain(grid, x, bound), atol=1e-4, rtol=1e-4)
+    grid, x, bound, size, unpadded = _interp_case(dev, case)
+    out = grid_interpolate_cuda(grid, x, bound, size)
+    torch.testing.assert_close(out, grid_interpolate_plain(grid, x, bound, size),
+                               atol=1e-4, rtol=1e-4)
+    if unpadded is not None:
+        torch.testing.assert_close(out, grid_interpolate_plain(unpadded, x, bound),
+                                   atol=1e-4, rtol=1e-4)
+    g = torch.randn((x.shape[0], grid.shape[-1]), device=dev)
+    before = grid_interpolate_grad_cuda.launches
+    for need_x in (True, False):
+        got = grid_interpolate_grad_cuda(grid, x, bound, g, size, need_x=need_x)
+        ref = grid_interpolate_grad_plain(grid, x, bound, g, size, need_x=need_x)
+        _grad_close(got[0], ref[0])
+        if need_x:
+            _grad_close(got[1], ref[1])
+        else:
+            assert got[1] is None
+    torch.cuda.synchronize()
+    assert grid_interpolate_grad_cuda.launches == before + 2
 
 
 DECODE_CASES = {  # (F_in, out, hidden, hidden layers, points)
