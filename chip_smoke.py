@@ -10,17 +10,24 @@ Phases, in order; any failure exits non-zero and prints no result:
                geometry runtime with g++, and load them;
   2. kernels - hold each kernel to its plain PyTorch version on the card:
                * the fused interp+decode kernel at the ScanNet mapping widths
-                 with 1e6 points (5 % out of bound), again with ignore_level
-                 and padded storage with logical sizes, at an off-default
-                 shape (3 levels, F=8, 3 hidden layers, out_dim 3) and at
-                 base.yaml's (1 level, F=1, no hidden stack); the
-                 autograd.Function's gradients against the plain version's;
+                 with 1e6 points (5 % out of bound), with a point on a cell
+                 face, with ignore_level and padded storage with logical
+                 sizes, at an off-default shape (3 levels, F=8, 3 hidden
+                 layers, out_dim 3), at base.yaml's (1 level, F=1, no hidden
+                 stack), at F=1, 12 and 36, with the mesh path's padded levels
+                 staged in shared memory, and with a table just under and
+                 just over the staging budget (each case logs which levels it
+                 staged); the autograd.Function's gradients against the plain
+                 version's; its call and kernel time against its 3xTF32 and
+                 FP32 bounds and the sum of the kernels it fuses;
                * the interp forward and grad kernels (grid and points'
                  gradients, and the grid's alone) at the ScanNet fine and
                  coarse levels, F=1, 12 and 36, 1e6 points; at the fine level
                  with all of them in one cell and all in 16^3 cells, and with
                  0 and 1 points; padded storage with a logical size at F=1, 4
-                 and 12; their times (the grad's table-only and with the
+                 and 12; the forward with a table just under and just over its
+                 staging budget (each case logs the forward's path, shared
+                 memory or L2); their times (the grad's table-only and with the
                  points' gradient, the call and the device time of its
                  kernels) at both ScanNet levels with 1e6 points and at the
                  mesh path's levels with 2^15;
@@ -34,9 +41,10 @@ Phases, in order; any failure exits non-zero and prints no result:
                * kernel, plain and library (grid_sample) times against the
                  bound of each at the ScanNet sizes;
                the kernels line takes the interp kernels' times at the ScanNet
-               fine level (the grad's table only), and beside
-               them the grad's with the points' gradient, as the
-               default-decode step calls it, and its coarse-level call;
+               fine level (the grad's table only), and beside them the
+               forward's coarse-level call and paths, the grad's call with the
+               points' gradient, as the default-decode step calls it, and its
+               coarse-level call;
   3. main    - the mapping train step that bench.py drives, at full ScanNet
                width: GridNet (2 levels, F=4, 0.5 m / 0.1 m cells, 64x1
                decoder, 372 poses) with the default decode that bench.py and
@@ -55,7 +63,8 @@ Phases, in order; any failure exits non-zero and prints no result:
                and lattice chunk launching the interp, interp grad and decode
                kernels; then those kernels held to their plain versions on
                the trained model at the path's shapes (a 2^15-point batch,
-               2^15 eikonal points, a 2^18-point lattice chunk);
+               2^15 eikonal points, a 2^18-point lattice chunk), and the interp
+               forward's times on the lattice chunk;
   5. report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches: the interp, interp grad
                and decode kernels' in phase 3's default-decode run and phase
@@ -82,6 +91,7 @@ N_POINTS = 1_000_000
 WARMUP_STEPS = 3
 TIMED_STEPS = 20
 TIMED_CALLS = 20           # kernel / plain forward timings
+MARK_CYCLES = 10_000       # a profiler window's spin-kernel markers, ~5 us
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): FP32 outside the tensor
 # cores, dense TF32 on the tensor cores, and HBM3 bandwidth.  The bound of a
@@ -190,7 +200,7 @@ def _setup(bound_list, cell_sizes, fdim, hidden, hidden_layers, out_dim, n, seed
 
 
 def _max_err(got, ref):
-    return float((got - ref).abs().max())
+    return float((got - ref).detach().abs().max()) if got.numel() else 0.0
 
 
 def _check_values(name, got, ref, errs):
@@ -204,16 +214,24 @@ def _check_values(name, got, ref, errs):
         f"rtol {VALUE_RTOL}) ok")
 
 
-def _bound_ms(grids, x, decoder, out_dim):
-    """Least time for one fused call: bytes (each input read once, the output
-    written once) over HBM bandwidth vs FP32 operations over the FP32 peak."""
+def _fused_bounds(grids, x, decoder):
+    """(ms, what bounds it) of one fused call, and the FP32 bound beside it.
+    The kernel runs the MLP as the decode kernel does (3xTF32 hidden layers,
+    an output layer of at most 4 columns in FP32) and the lerp in FP32 on the
+    CUDA cores: its least time is the larger of the two units' times and the
+    bytes' (x read and the output written once, every table and the
+    weights).  The FP32 bound counts every FMA on the CUDA cores."""
     n = x.shape[0]
     fdim = grids[0].shape[-1]
-    nbytes = (x.numel() + n * out_dim + sum(g.numel() for g in grids)
+    t_tc, t_dot = _mlp_op_ms(decoder, n)
+    lerp_flops = 2.0 * 8 * len(grids) * fdim * n
+    t_ops = max(t_tc, t_dot + lerp_flops / PEAK_FP32_FLOPS * 1e3)
+    nbytes = (x.numel() + n * decoder[-1][0].shape[1] + sum(g.numel() for g in grids)
               + sum(W.numel() + b.numel() for W, b in decoder)) * 4
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    tc = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     mlp_fma = sum(W.shape[0] * W.shape[1] for W, _ in decoder)
-    lerp_fma = 8 * len(grids) * fdim
-    return _bound(nbytes, 2.0 * (mlp_fma + lerp_fma) * n)
+    return tc, _bound(nbytes, 2.0 * mlp_fma * n + lerp_flops)
 
 
 def _bound(nbytes, flops):
@@ -224,9 +242,55 @@ def _bound(nbytes, flops):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def _shaped_case(shape, n, seed, bound_list=((-1.0, 1.0), (-1.0, 1.2), (-0.8, 1.0))):
+    """A (X, Y, Z, F) table of the given shape and n points 5 % beyond a bound."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    bound = torch.tensor(bound_list, dtype=torch.float32, device=dev)
+    return (0.1 * torch.randn(shape, generator=gen, device=dev), _points(bound, n, gen),
+            bound)
+
+
+def _pad(grids, seed):
+    """Each grid in storage padded with garbage, and its logical size."""
+    gen = torch.Generator(device=grids[0].device).manual_seed(seed)
+    padded, sizes = [], []
+    for t in grids:
+        sp = t.shape[:3]
+        p = 10.0 * torch.randn((sp[0] + 3, sp[1] + 2, sp[2] + 1, t.shape[3]),
+                               generator=gen, device=t.device)
+        p[:sp[0], :sp[1], :sp[2]] = t
+        padded.append(p)
+        sizes.append(torch.tensor(sp, dtype=torch.int32, device=t.device))
+    return padded, sizes
+
+
+# A point of the ScanNet coarse level exactly on a cell face: u = 16 on axis 1
+# when rounded op by op (15.99999 through a fused multiply-add).
+ON_FACE = [1.4275164604187012, 8.010832786560059, 0.1370464414358139]
+
+
+def _fused_check(name, args, errs):
+    """The fused kernel against its plain version on the same inputs; logs
+    which levels it staged in shared memory."""
+    from miso_tpu_torch.ops.fused_decode import (fused_interp_decode_cuda,
+                                                 fused_interp_decode_occupancy,
+                                                 fused_interp_decode_plain)
+    occ = fused_interp_decode_occupancy(*args)
+    log(f"  fused {name}: grids {[tuple(t.shape) for t in args[0]]}, levels staged "
+        f"{occ['staged']}, {occ['smem_bytes']} B of shared memory a block, "
+        f"{occ['blocks_per_sm']} blocks an SM")
+    _check_values(f"fused_{name}", fused_interp_decode_cuda(*args),
+                  fused_interp_decode_plain(*args), errs)
+    return occ
+
+
 def phase_kernels():
     from miso_tpu_torch.ops.fused_decode import (
-        fused_interp_decode, fused_interp_decode_cuda, fused_interp_decode_plain)
+        FUSED_BLOCKS_PER_SM, fused_interp_decode, fused_interp_decode_cuda,
+        fused_interp_decode_plain, fused_layout, mlp_decode_cuda)
+    from miso_tpu_torch.ops.mlp import mlp_init
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, smem_budget
     errs = {}
     g = SCANNET_MODEL["grid"]
     scannet_cells = [g["base_cell_size"] / g["per_level_scale"] ** l
@@ -235,52 +299,62 @@ def phase_kernels():
                                       N_POINTS, seed=1)
     log(f"  ScanNet widths: grids {[tuple(t.shape) for t in grids]}, "
         f"MLP {[tuple(W.shape) for W, _ in decoder]}, {N_POINTS} points")
+    dev = x.device
     with torch.no_grad():
-        got = fused_interp_decode_cuda(grids, x, bound, decoder)
-        ref = fused_interp_decode_plain(grids, x, bound, decoder)
-        torch.cuda.synchronize()
-        _check_values("scannet", got, ref, errs)
+        occ = _fused_check("scannet", (grids, x, bound, decoder), errs)
+        # A point on a cell face of the coarse level, which the kernel must
+        # put in the cell the plain version does.
+        xf = x[:20000].clone()
+        xf[0] = torch.tensor(ON_FACE, device=dev)
+        _fused_check("scannet_on_face", (grids, xf, bound, decoder), errs)
 
         # ignore_level on both levels, storage padded with garbage and logical
         # sizes: must equal the plain version on the same inputs, and zero
         # features (decoder of zeros) whatever the padding holds.
-        gen = torch.Generator(device=x.device).manual_seed(2)
-        padded, sizes = [], []
-        for t in grids:
-            sp = t.shape[:3]
-            p = 10.0 * torch.randn((sp[0] + 3, sp[1] + 2, sp[2] + 1, t.shape[3]),
-                                   generator=gen, device=x.device)
-            p[:sp[0], :sp[1], :sp[2]] = t
-            padded.append(p)
-            sizes.append(torch.tensor(sp, dtype=torch.int32, device=x.device))
-        ig = torch.tensor([0.0, 1.0], device=x.device)
-        got = fused_interp_decode_cuda(padded, x, bound, decoder, sizes, ig)
-        _check_values("scannet_sized_ignore[0,1]", got,
-                      fused_interp_decode_plain(padded, x, bound, decoder, sizes, ig),
-                      errs)
-        _check_values("scannet_sized_vs_unpadded", got,
-                      fused_interp_decode_plain(grids, x, bound, decoder, None, ig),
-                      errs)
-        ig = torch.tensor([1.0, 1.0], device=x.device)
-        got = fused_interp_decode_cuda(padded, x, bound, decoder, sizes, ig)
-        _check_values("scannet_sized_ignore[1,1]", got,
-                      fused_interp_decode_plain(padded, x, bound, decoder, sizes, ig),
-                      errs)
+        padded, sizes = _pad(grids, 2)
+        ig = torch.tensor([0.0, 1.0], device=dev)
+        _fused_check("scannet_sized_ignore[0,1]", (padded, x, bound, decoder, sizes, ig), errs)
+        _check_values("fused_scannet_sized_vs_unpadded",
+                      fused_interp_decode_cuda(padded, x, bound, decoder, sizes, ig),
+                      fused_interp_decode_plain(grids, x, bound, decoder, None, ig), errs)
+        ig = torch.tensor([1.0, 1.0], device=dev)
+        _fused_check("scannet_sized_ignore[1,1]", (padded, x, bound, decoder, sizes, ig), errs)
 
         # Off-default: 3 levels, F=8, 3 hidden layers (hidden_layers: 2), out 3.
-        og, ox, ob, od = _setup(g["bound"], [0.4, 0.2, 0.1], 8, 64, 2, 3,
-                                N_POINTS, seed=3)
-        _check_values("3lvl_F8_h64x3_out3", fused_interp_decode_cuda(og, ox, ob, od),
-                      fused_interp_decode_plain(og, ox, ob, od), errs)
+        _fused_check("3lvl_F8_h64x3_out3",
+                     _setup(g["bound"], [0.4, 0.2, 0.1], 8, 64, 2, 3, N_POINTS, seed=3), errs)
         # configs/base.yaml: one level, F=1, hidden_layers 0 (1 -> 4 -> 1).
-        bg, bx, bb, bd = _setup([[-1.0, 1.0]] * 3, [1.0], 1, 4, 0, 1,
-                                N_POINTS, seed=4)
-        _check_values("base_1lvl_F1", fused_interp_decode_cuda(bg, bx, bb, bd),
-                      fused_interp_decode_plain(bg, bx, bb, bd), errs)
+        _fused_check("base_1lvl_F1",
+                     _setup([[-1.0, 1.0]] * 3, [1.0], 1, 4, 0, 1, N_POINTS, seed=4), errs)
+        # F = 1, 12 and 36 at the ScanNet cells: the coarse table is staged
+        # at F = 1 and left in L2 at F = 12 and 36 (L * F = 24, 72 wide).
+        for fdim in (1, 12, 36):
+            _fused_check(f"scannet_F{fdim}",
+                         _setup(g["bound"], scannet_cells, fdim, 64, 1, 1, N_POINTS,
+                                seed=5 + fdim), errs)
+        # Padded storage with logical sizes on the staged path: the mesh path's
+        # levels, both small enough to stage in their padding.
+        mg, mx, mb, md = _setup(MESH_BOUND, [0.5, 1.0], 4, 64, 1, 1, N_POINTS, seed=6)
+        mp, ms = _pad(mg, 7)
+        occ_sized = _fused_check("mesh_sized_staged", (mp, mx, mb, md, ms), errs)
+        check(all(occ_sized["staged"]), f"padded mesh levels not staged: {occ_sized}")
+        _check_values("fused_mesh_sized_vs_unpadded", fused_interp_decode_cuda(mp, mx, mb, md, ms),
+                      fused_interp_decode_plain(mg, mx, mb, md), errs)
+        # One level just under and just over the block's staging budget at
+        # the ScanNet decoder (8 -> 64 -> 64 -> 1 after a second level of 1 row).
+        other = fused_layout([8, 64, 64, 1], [])["smem_bytes"] + 16
+        rows = (smem_budget(FUSED_BLOCKS_PER_SM) - other) // 16
+        dec = mlp_init(8, 1, 64, 1, generator=torch.Generator().manual_seed(9), device=dev)
+        for name, r in (("budget_under", rows), ("budget_over", rows + 1)):
+            t, xb, bb = _shaped_case((1, 1, r, 4), N_POINTS, 8)
+            tiny = 0.1 * torch.randn((1, 1, 1, 4), device=dev)
+            occ_b = _fused_check(name, ([t, tiny], xb, bb, dec), errs)
+            check(occ_b["staged"] == [name == "budget_under", True],
+                  f"{name}: levels staged {occ_b['staged']}")
 
     # Gradients of the autograd.Function against the plain version's.
-    cot = torch.randn((N_POINTS, 1), generator=torch.Generator(device=x.device)
-                      .manual_seed(5), device=x.device)
+    cot = torch.randn((N_POINTS, 1), generator=torch.Generator(device=dev)
+                      .manual_seed(5), device=dev)
     grad_err = {}
     results = []
     for fn in (fused_interp_decode, fused_interp_decode_plain):
@@ -306,15 +380,31 @@ def phase_kernels():
         + ", ".join(f"{k} {v:.2e}" for k, v in grad_err.items()))
     errs["grad_max"] = max(grad_err.values())
 
-    # Times at the ScanNet widths.
+    # Times at the ScanNet widths: the call (CUDA events), the kernel alone
+    # (profiler), and beside it, in the same call, the parts it fuses as
+    # GridNet's default decode runs them: the interp forward at both levels
+    # and the decode kernel (device time of each).
     with torch.no_grad():
-        ms = cuda_ms(lambda: fused_interp_decode_cuda(grids, x, bound, decoder))
-        plain_ms = cuda_ms(lambda: fused_interp_decode_plain(grids, x, bound, decoder))
-    bound_ms, bound_by = _bound_ms(grids, x, decoder, 1)
-    log(f"  fused_interp_decode at ScanNet widths, {N_POINTS} points: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by})")
-    return errs, dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        call = lambda: fused_interp_decode_cuda(grids, x, bound, decoder)  # noqa: E731
+        t = dict(ms=cuda_ms(call), device_ms=_kernel_device_ms(call, "fused_interp_decode"),
+                 plain_ms=cuda_ms(lambda: fused_interp_decode_plain(grids, x, bound, decoder)),
+                 library_ms=None)
+        feats = torch.cat([grid_interpolate_cuda(lv, x, bound) for lv in grids], dim=-1)
+        parts = {f"interp_L{l}": _kernel_device_ms(lambda lv=lv: grid_interpolate_cuda(lv, x, bound))
+                 for l, lv in enumerate(grids)}
+        parts["decode"] = _kernel_device_ms(lambda: mlp_decode_cuda(decoder, feats),
+                                            "mlp_decode_kernel")
+    (t["bound_ms"], t["bound_by"]), (t["fp32_bound_ms"], _) = _fused_bounds(grids, x, decoder)
+    t.update(parts_device_ms=parts, parts_sum_ms=sum(parts.values()),
+             levels_staged=occ["staged"], smem_bytes=occ["smem_bytes"],
+             blocks_per_sm=occ["blocks_per_sm"])
+    log(f"  fused_interp_decode at ScanNet widths, {N_POINTS} points: call {t['ms']:.4f} ms, "
+        f"kernel {t['device_ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms ({t['bound_by']}: 3xTF32 on the tensor cores), FP32 bound "
+        f"{t['fp32_bound_ms']:.4f} ms; its parts as kernels: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+        + f", sum {t['parts_sum_ms']:.4f} ms")
+    return errs, t
 
 
 def _check_grad(name, got, ref, errs):
@@ -367,6 +457,13 @@ INTERP_SHAPES = [
 ]
 
 
+def _fwd_path(grid, n):
+    """The interp forward's path for n points on a grid (float4 rows when
+    F % 4 == 0: the cases' tensors are 16-byte aligned)."""
+    from miso_tpu_torch.ops.tiled_interp import interp_forward_path
+    return interp_forward_path(grid, n, grid.shape[-1] % 4 == 0)
+
+
 def _interp_bounds(grid, x, need_x):
     """(ms, what bounds it) of one interp grad call (or forward): x, the
     cotangent (or the output) and the table once each, plus, with the points'
@@ -403,8 +500,9 @@ def phase_interp_kernels():
     """The interp forward and grad kernels against their plain versions, and
     their times at the shapes of their paths beside grid_sample's."""
     from miso_tpu_torch.ops.tiled_interp import (
-        grid_interpolate_cuda, grid_interpolate_grad_cuda, grid_interpolate_grad_plain,
-        grid_interpolate_plain, interp_grad_copies)
+        INTERP_STAGED_BLOCKS, grid_interpolate_cuda, grid_interpolate_grad_cuda,
+        grid_interpolate_grad_plain, grid_interpolate_plain, interp_grad_copies, smem_budget,
+        table_bytes)
     errs = {}
     g = SCANNET_MODEL["grid"]
     fine_cell = g["base_cell_size"] / g["per_level_scale"]
@@ -418,8 +516,8 @@ def phase_interp_kernels():
         for seed, (name, bl, cell, fdim) in enumerate(cases, start=10):
             grid, x, bound = _grid_case(bl, cell, fdim, N_POINTS, seed)
             copies = interp_grad_copies(grid.shape[:3], fdim, N_POINTS)
-            log(f"  interp {name}: grid {tuple(grid.shape)}, {N_POINTS} points, "
-                f"grad kernel on {copies} copies of the table")
+            log(f"  interp {name}: grid {tuple(grid.shape)}, {N_POINTS} points, forward "
+                f"path {_fwd_path(grid, N_POINTS)}, grad kernel on {copies} copies of the table")
             _check_values(f"interp_{name}", grid_interpolate_cuda(grid, x, bound),
                           grid_interpolate_plain(grid, x, bound), errs)
             _interp_grad_check(name, grid, x, bound, None, errs, seed + 100)
@@ -438,21 +536,45 @@ def phase_interp_kernels():
         # No point and one point.
         for n in (0, 1):
             _interp_grad_check(f"fine_n{n}", grid, x[:n].contiguous(), bound, None, errs, 18)
+            _check_values(f"interp_fine_n{n}", grid_interpolate_cuda(grid, x[:n].contiguous(),
+                                                                     bound),
+                          grid_interpolate_plain(grid, x[:n].contiguous(), bound), errs)
+
+        # A table just under and just over the forward's staging budget (F = 4):
+        # in shared memory, and in pairs from L2.
+        rows = smem_budget(INTERP_STAGED_BLOCKS) // 16
+        for name, z in (("budget_under", rows // 64), ("budget_over", rows // 64 + 1)):
+            grid, x, bound = _shaped_case((8, 8, z, 4), N_POINTS, 19)
+            got = _fwd_path(grid, N_POINTS)
+            check(got == ("staged" if name == "budget_under" else "pairs"),
+                  f"interp {name}: {table_bytes(grid)} B taken {got}")
+            log(f"  interp {name}: grid {tuple(grid.shape)} ({table_bytes(grid)} B), forward "
+                f"path {got}")
+            _check_values(f"interp_{name}", grid_interpolate_cuda(grid, x, bound),
+                          grid_interpolate_plain(grid, x, bound), errs)
 
         # Padded storage with a logical size, as the fused kernel takes it, at
-        # F = 1 (scalar rows), 4 and 12: the forward against the plain version
-        # on the unpadded grid, the grad against the plain one on the padding.
-        for fdim in (1, 4, 12):
-            grid, x, bound = _grid_case(g["bound"], g["base_cell_size"], fdim, N_POINTS,
-                                        20 + fdim)
+        # F = 1 (scalar rows), 4 and 12 at the coarse level (staged, staged,
+        # L2) and F = 4 at the fine one (pairs): the forward against the plain
+        # version on the unpadded grid, the grad against the plain one on the
+        # padding.
+        for fdim, cell in ((1, g["base_cell_size"]), (4, g["base_cell_size"]),
+                           (12, g["base_cell_size"]), (4, fine_cell)):
+            grid, x, bound = _grid_case(g["bound"], cell, fdim, N_POINTS, 20 + fdim)
+            level = "coarse" if cell == g["base_cell_size"] else "fine"
             padded = 10.0 * torch.randn((grid.shape[0] + 3, grid.shape[1] + 2,
                                          grid.shape[2] + 1, fdim), device=dev)
             padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
             size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
-            _check_values(f"interp_sized_F{fdim}_vs_unpadded",
+            log(f"  interp {level} sized F={fdim}: storage {tuple(padded.shape)}, forward path "
+                f"{_fwd_path(padded, N_POINTS)}")
+            _check_values(f"interp_{level}_sized_F{fdim}_vs_unpadded",
                           grid_interpolate_cuda(padded, x, bound, size),
                           grid_interpolate_plain(grid, x, bound), errs)
-            _interp_grad_check(f"coarse_sized_F{fdim}", padded, x, bound, size, errs,
+            _check_values(f"interp_{level}_sized_F{fdim}",
+                          grid_interpolate_cuda(padded, x, bound, size),
+                          grid_interpolate_plain(padded, x, bound, size), errs)
+            _interp_grad_check(f"{level}_sized_F{fdim}", padded, x, bound, size, errs,
                                40 + fdim)
 
     # Times at the shapes of the kernels' paths: the call by CUDA events (what
@@ -464,10 +586,12 @@ def phase_interp_kernels():
         cot = torch.randn((n, 4), generator=torch.Generator(device=dev).manual_seed(seed),
                           device=dev)
         vol, coords = _grid_sample_inputs(grid, x, bound)
-        rec = {"grid": list(grid.shape), "points": n,
+        rec = {"grid": list(grid.shape), "points": n, "fwd_path": _fwd_path(grid, n),
                "copies": interp_grad_copies(grid.shape[:3], 4, n)}
         with torch.no_grad():
             rec["fwd"] = dict(ms=cuda_ms(lambda: grid_interpolate_cuda(grid, x, bound)),
+                              device_ms=_kernel_device_ms(
+                                  lambda: grid_interpolate_cuda(grid, x, bound)),
                               plain_ms=cuda_ms(lambda: grid_interpolate_plain(grid, x, bound)),
                               library_ms=cuda_ms(lambda: _grid_sample(vol, coords)))
             rec["fwd"]["bound_ms"], rec["fwd"]["bound_by"] = _interp_bounds(grid, x, False)
@@ -488,7 +612,8 @@ def phase_interp_kernels():
         rec["grad_x"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
             out, [vol_r, coords_r], gout, retain_graph=True))
         times[name] = rec
-        log(f"  {name} {tuple(grid.shape)}, {n} points, grad on {rec['copies']} copies: " +
+        log(f"  {name} {tuple(grid.shape)}, {n} points, forward path {rec['fwd_path']}, grad "
+            f"on {rec['copies']} copies: " +
             "; ".join(f"{k} call {v['ms']:.4f} ms" +
                       (f" (device {v['device_ms']:.4f})" if "device_ms" in v else "") +
                       f", plain {v['plain_ms']:.4f}, grid_sample {v['library_ms']:.4f}, "
@@ -506,41 +631,86 @@ def _decode_bounds(params, n):
     fin, fout = params[0][0].shape[0], params[-1][0].shape[1]
     nbytes = (n * (fin + fout) + sum(W.numel() + (0 if b is None else b.numel())
                                      for W, b in params)) * 4
-    mma_layers = params[:-1] if fout <= 4 else params
-    padded = sum(-(-W.shape[0] // 8) * 8 * -(-W.shape[1] // 8) * 8 for W, _ in mma_layers)
-    dot = -(-params[-1][0].shape[0] // 8) * 8 * fout if fout <= 4 else 0
-    t_tc = 3 * 2.0 * padded * n / PEAK_TF32_FLOPS * 1e3
-    t_dot = 2.0 * dot * n / PEAK_FP32_FLOPS * 1e3
+    t_tc, t_dot = _mlp_op_ms(params, n)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     tc = (max(t_tc, t_dot), "operations") if max(t_tc, t_dot) >= t_bytes else (t_bytes, "bytes")
     simt = _bound(nbytes, 2.0 * sum(W.shape[0] * W.shape[1] for W, _ in params) * n)
     return tc, simt
 
 
+def _mlp_op_ms(params, n):
+    """Least ms of the MLP kernels' two units for n points: the hidden layers
+    (every layer when the output is wider than 4) in 3xTF32 on the tensor
+    cores, widths padded to 8; an output layer of at most 4 columns in FP32
+    on the CUDA cores, k padded to 8."""
+    fout = params[-1][0].shape[1]
+    mma_layers = params[:-1] if fout <= 4 else params
+    padded = sum(-(-W.shape[0] // 8) * 8 * -(-W.shape[1] // 8) * 8 for W, _ in mma_layers)
+    dot = -(-params[-1][0].shape[0] // 8) * 8 * fout if fout <= 4 else 0
+    return (3 * 2.0 * padded * n / PEAK_TF32_FLOPS * 1e3,
+            2.0 * dot * n / PEAK_FP32_FLOPS * 1e3)
+
+
 def _device_events(fn, calls=TIMED_CALLS):
     """(name, device microseconds) of every kernel and memset that ``calls``
     calls of fn ran under torch.profiler, after 3 calls of warm-up: the
-    device's own time, without the host's launch cost in it."""
+    device's own time, without the host's launch cost in it.  The tracer can
+    miss the first kernels of a window, so the window opens on 2 more calls,
+    and the timed calls are the events between two spin kernels (markers)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+        for _ in range(2):
             fn()
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+        torch.cuda._sleep(MARK_CYCLES)
+        for _ in range(calls):
+            fn()
+        torch.cuda._sleep(MARK_CYCLES)
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.name, e.time_range.elapsed_us()) for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    marks = [i for i, (_, name, _) in enumerate(events) if "spin_kernel" in name]
+    if len(marks) != 2:
+        return []
+    return [(name, us) for _, name, us in events[marks[0] + 1:marks[1]]]
+
+
+def _queued_ms(fn, calls=TIMED_CALLS, warmup=3):
+    """Mean device milliseconds per call of fn, by CUDA events around calls
+    queued behind a spin kernel, so that the device runs them back to back
+    without waiting on the host.  It counts every kernel of fn and the gaps
+    between them."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)        # ~25 ms at 1.98 GHz: the host's head start
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def _kernel_device_ms(fn, kernel_name=None, calls=TIMED_CALLS):
     """Mean device milliseconds per launch of the kernels whose name contains
     ``kernel_name`` (or per call, of every kernel and memset fn runs, when
-    None), over ``calls`` calls of fn (:func:`_device_events`)."""
-    us = [t for name, t in _device_events(fn, calls)
-          if kernel_name is None or kernel_name in name]
-    check(len(us) == calls or (kernel_name is None and us),
-          f"profiler saw {len(us)} {kernel_name} launches in {calls} calls")
-    return sum(us) / calls / 1e3
+    None), over ``calls`` calls of fn (:func:`_device_events`).  The profiler
+    now and then returns windows short of events, several in a row: a short
+    window is taken again, twice at most, and then the time is read by CUDA
+    events instead (:func:`_queued_ms`)."""
+    for _ in range(3):
+        us = [t for name, t in _device_events(fn, calls)
+              if kernel_name is None or kernel_name in name]
+        if us and (len(us) == calls if kernel_name else len(us) % calls == 0):
+            return sum(us) / calls / 1e3
+    log(f"  profiler saw {len(us)} {kernel_name or 'kernel'} launches in {calls} calls, "
+        f"three times: device time read by CUDA events around calls queued back to back")
+    return _queued_ms(fn, calls)
 
 
 def phase_decode_kernel():
@@ -811,13 +981,14 @@ def _mesh_kernel_checks(model, ds):
     trained model, at the path's own shapes: a 2^15-point training batch,
     2^15 eikonal points and a 2^18-point lattice chunk through the middle of
     the 192^3 lattice.  The grad kernel runs on the two sets that training
-    differentiates."""
+    differentiates.  Returns the errors and the interp forward's times on the
+    lattice chunk, per level."""
     from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
     from miso_tpu_torch.ops.tiled_interp import (
         grid_interpolate_cuda, grid_interpolate_grad_cuda, grid_interpolate_grad_plain,
         grid_interpolate_plain)
     from miso_tpu_torch.utils.sdf import lattice_chunk_points
-    errs = {}
+    errs, times = {}, {}
     bound = model.bound
     dev = bound.device
     gen = torch.Generator(device=dev).manual_seed(50)
@@ -837,6 +1008,17 @@ def _mesh_kernel_checks(model, ds):
                               grid_interpolate_plain(grid, x, bound), errs)
                 feats.append(f)
                 if name == "lattice":
+                    call = lambda: grid_interpolate_cuda(grid, x, bound)  # noqa: E731
+                    t = dict(grid=list(grid.shape), points=x.shape[0],
+                             path=_fwd_path(grid, x.shape[0]),
+                             ms=cuda_ms(call), device_ms=_kernel_device_ms(call),
+                             plain_ms=cuda_ms(lambda: grid_interpolate_plain(grid, x, bound)))
+                    t["bound_ms"], t["bound_by"] = _interp_bounds(grid, x, False)
+                    times[f"L{level}"] = t
+                    log(f"  interp forward on the lattice chunk, level {level} "
+                        f"{tuple(grid.shape)} on path {t['path']}, {x.shape[0]} points: call "
+                        f"{t['ms']:.4f} ms, device {t['device_ms']:.4f} ms, plain "
+                        f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
                     continue
                 cot = torch.randn(f.shape, generator=gen, device=dev)
                 d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, cot)
@@ -846,7 +1028,7 @@ def _mesh_kernel_checks(model, ds):
             feats = torch.cat(feats, dim=-1)
             _check_values(f"mesh_decode_{name}", mlp_decode_cuda(decoder, feats),
                           mlp_decode_plain(decoder, feats), errs)
-    return errs
+    return errs, times
 
 
 def phase_mesh():
@@ -957,7 +1139,7 @@ def phase_mesh():
           "the default decode must not run the fused kernel")
 
     log("  the mesh path's kernels against their plain versions on the trained model:")
-    kernel_errs = _mesh_kernel_checks(model, ds)
+    kernel_errs, lattice_interp = _mesh_kernel_checks(model, ds)
     return dict(
         epochs=epochs, train_s=train_s, epochs_per_s=epochs / train_s,
         step_ms_median=float(np.median(step_ms)),
@@ -966,7 +1148,8 @@ def phase_mesh():
         resolution=MESH_RESOLUTION, lattice_points=MESH_RESOLUTION ** 3,
         lattice_chunks=chunks, save_mesh_s=mesh_s, lattice_launches=lattice_counts,
         lattice_s=lattice_s, marching_cubes_s=mc_s, mesh_vertices=len(mesh.vertices),
-        mesh_triangles=len(mesh.triangles), metrics=metrics), kernel_errs
+        mesh_triangles=len(mesh.triangles), metrics=metrics,
+        lattice_interp_fwd=lattice_interp), kernel_errs
 
 
 def main() -> int:
@@ -1021,7 +1204,8 @@ def main() -> int:
 
     log("phase 5: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
-                      "interp_kernels": interp_times, "decode_kernel": decode_t,
+                      "fused_kernel": times, "interp_kernels": interp_times,
+                      "decode_kernel": decode_t,
                       "main_path": main_report, "main_path_fused": fused_report,
                       "mesh_path": mesh_report}), flush=True)
 
@@ -1054,18 +1238,31 @@ def main() -> int:
                     points_grad_bound_ms=fine["grad_x"]["bound_ms"],
                     coarse_ms=coarse["grad"]["ms"], coarse_bound_ms=coarse["grad"]["bound_ms"],
                     coarse_copies=coarse["copies"])
-    kernels = [
-        entry("fused_interp_decode", "miso_tpu_torch/csrc/fused_interp_decode.cu",
-              "miso_tpu/ops/pallas_decode.py:186", fused_report["launches"]["fused"],
-              errs["scannet"], times),
-        entry("grid_interp_forward", "miso_tpu_torch/csrc/grid_interp.cu",
-              "miso_tpu/ops/pallas_interp.py:196", launches("interp"),
-              worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_"), fine["fwd"]),
-        backward,
-        entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
-              "miso_tpu/ops/pallas_decode.py:107", launches("decode"),
-              worst("decode_scannet", "mesh_decode_"), decode_t),
-    ]
+    # The fused kernel's entry: its call at the ScanNet widths, bound by its
+    # 3xTF32 operations; beside it the FP32 bound, the kernel's device time,
+    # the sum of the parts it fuses in the same call and which levels it
+    # staged.  The interp forward's: the fine level's call, and beside it the
+    # coarse level's, the path each took and the lattice chunk's calls.
+    fused = entry("fused_interp_decode", "miso_tpu_torch/csrc/fused_interp_decode.cu",
+                  "miso_tpu/ops/pallas_decode.py:186", fused_report["launches"]["fused"],
+                  worst("fused_"), times)
+    fused.update(bound_note="3xTF32 tensor-core operations", fp32_bound_ms=times["fp32_bound_ms"],
+                 device_ms=times["device_ms"], parts_sum_ms=times["parts_sum_ms"],
+                 levels_staged=times["levels_staged"])
+    forward = entry("grid_interp_forward", "miso_tpu_torch/csrc/grid_interp.cu",
+                    "miso_tpu/ops/pallas_interp.py:196", launches("interp"),
+                    worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_"), fine["fwd"])
+    lattice = mesh_report["lattice_interp_fwd"]
+    forward.update(path=fine["fwd_path"], device_ms=fine["fwd"]["device_ms"],
+                   coarse_path=coarse["fwd_path"], coarse_ms=coarse["fwd"]["ms"],
+                   coarse_device_ms=coarse["fwd"]["device_ms"],
+                   coarse_bound_ms=coarse["fwd"]["bound_ms"],
+                   lattice_device_ms={k: v["device_ms"] for k, v in lattice.items()},
+                   lattice_paths={k: v["path"] for k, v in lattice.items()})
+    kernels = [fused, forward, backward,
+               entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
+                     "miso_tpu/ops/pallas_decode.py:107", launches("decode"),
+                     worst("decode_scannet", "mesh_decode_"), decode_t)]
     tpu_kernels = [
         {"replaces": "miso_tpu/ops/pallas_decode.py:186", "name": "_fused_kernel",
          "status": "ported and checked", "port": "fused_interp_decode"},

@@ -20,8 +20,24 @@
 //   d/dx_k = sum_c [corner c valid] (+-1) * (other axes' weights) * <g, row_c>
 //            * n_k / (hi_k - lo_k).
 //
-// Forward: one thread per point gathers its 8 rows straight from the grid,
-// which sits in the H100's 50 MB L2 (the fine ScanNet level is 4.6 MB).
+// Forward: each point gathers its 8 rows (mtt_grid.cuh::mtt_lerp) in the
+// caller's order, random over the table, so the L2's gather rate sets its
+// pace, not device-memory bytes: 4 pairs of rows along axis 2, 8 float4
+// requests in about 6 L2 sectors a point.  ops/tiled_interp.py::
+// interp_forward_path picks one of three paths, from measurements on the
+// H100 (PERF.md, scripts/interp_fwd_variants.py):
+//   * a call of 2^19 points or more with a table that fits a block's share of
+//     shared memory at 2 blocks an SM (the coarse ScanNet level, 42,336 B):
+//     a persistent grid of 1024-thread blocks, each copying the table to its
+//     shared memory once, then walking the points grid-stride;
+//   * such a call with a larger table at F = 4 (the fine ScanNet level,
+//     4.6 MB): a first kernel copies the table in pairs along axis 2, so that
+//     a point's 4 pairs are 4 aligned 32-byte reads, 4 sectors; the copy,
+//     9.2 MB written, is repaid at 1e6 points;
+//   * every other call (the mesh path's 2^15-point batches and 2^18-point
+//     lattice chunks, where a copy is not repaid, and wider rows, where a
+//     pair spans several sectors anyway): one thread per point, from the
+//     table in the H100's 50 MB L2 (small tables then stay in L1).
 //
 // Backward: one thread per point, as the forward, scatters w_c * g into the
 // table with one float4 atomic per valid corner (red.global.add.v4.f32 on
@@ -55,7 +71,13 @@
 #include "mtt_grid.cuh"
 
 #define MTT_INTERP_THREADS 256
+#define MTT_STAGED_THREADS 1024
 #define MTT_SUM_THREADS 256
+
+// The forward's paths (ops/tiled_interp.py::FORWARD_PATHS).
+#define MTT_FWD_L2 0
+#define MTT_FWD_STAGED 1
+#define MTT_FWD_PAIRS 2
 
 struct MttInterpArgs {
   const float* x;        // (n, 3) world coordinates
@@ -87,44 +109,117 @@ __device__ __forceinline__ void mtt_point_axes(const MttInterpArgs& a, long long
     ext[k] = a.bound[2 * k + 1] - lo[k];
     xp[k] = a.x[3 * p + k];
   }
-  mtt_axes(xp, lo, ext, a.dims, a.size, ax, /*round_each_op=*/true);
+  mtt_axes(xp, lo, ext, a.dims, a.size, ax);
 }
 
-__global__ void __launch_bounds__(MTT_INTERP_THREADS)
-grid_interp_forward_kernel(const __grid_constant__ MttInterpArgs a) {
-  const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
-  if (p >= a.n) return;
+// Writes one point's features to its output row.
+struct MttRowSink {
+  float* o;
+  __device__ __forceinline__ void put(int f, float v) { o[f] = v; }
+  __device__ __forceinline__ void put4(int f, float4 v) {
+    *reinterpret_cast<float4*>(o + f) = v;
+  }
+};
+
+template <bool STAGED, int FC>
+__device__ __forceinline__ void mtt_interp_point(const MttInterpArgs& a, const float* rows,
+                                                 long long p) {
   MttAxes ax;
   mtt_point_axes(a, p, ax);
   int lin[8];
   float w[8];
   mtt_corners(ax, a.dims, lin, w);
-  const int F = a.fdim;
-  float* o = a.out + p * F;
-  if (a.vec4) {
-    for (int f = 0; f < F; f += 4) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        const float4 v =
-            __ldg(reinterpret_cast<const float4*>(a.grid + (long long)lin[c] * F + f));
-        acc.x = fmaf(w[c], v.x, acc.x);
-        acc.y = fmaf(w[c], v.y, acc.y);
-        acc.z = fmaf(w[c], v.z, acc.z);
-        acc.w = fmaf(w[c], v.w, acc.w);
-      }
-      *reinterpret_cast<float4*>(o + f) = acc;
-    }
-  } else {
-    for (int f = 0; f < F; ++f) {
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        acc = fmaf(w[c], __ldg(a.grid + (long long)lin[c] * F + f), acc);
-      }
-      o[f] = acc;
-    }
+  MttRowSink sink{a.out + p * a.fdim};
+  mtt_lerp<STAGED, FC>(rows, lin, w, a.fdim, a.vec4 != 0, sink);
+}
+
+// A table left in L2: one thread per point.  FC: F at compile time (4, the
+// paths' F, with float4 rows), or 0.
+template <int FC>
+__global__ void __launch_bounds__(MTT_INTERP_THREADS)
+grid_interp_forward_kernel(const __grid_constant__ MttInterpArgs a) {
+  const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
+  if (p >= a.n) return;
+  mtt_interp_point<false, FC>(a, a.grid, p);
+}
+
+// A staged table: each block copies it to shared memory once, then walks the
+// points grid-stride.
+template <int FC>
+__global__ void __launch_bounds__(MTT_STAGED_THREADS)
+grid_interp_forward_staged_kernel(const __grid_constant__ MttInterpArgs a) {
+  extern __shared__ float4 smem4[];
+  float* table = reinterpret_cast<float*>(smem4);
+  mtt_stage_table(a.grid, table, (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim,
+                  threadIdx.x, MTT_STAGED_THREADS);
+  __syncthreads();
+  for (long long p = (long long)blockIdx.x * MTT_STAGED_THREADS + threadIdx.x; p < a.n;
+       p += (long long)gridDim.x * MTT_STAGED_THREADS) {
+    mtt_interp_point<true, FC>(a, table, p);
   }
+}
+
+// A table left in L2, read in pairs (F = 4): row r of the copy holds storage
+// rows r and r + 1 along axis 2 (r again where r + 1 passes the last row a
+// corner can index there, as a corner clips), so the two corners of a pair
+// are one aligned 32-byte read, one L2 sector, where the table itself gives
+// 1.5 on average.  The copy is made by a first kernel on every call.
+__global__ void __launch_bounds__(MTT_INTERP_THREADS)
+grid_interp_pair_pack_kernel(const __grid_constant__ MttInterpArgs a, float4* __restrict__ pairs) {
+  const long long r = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
+  const long long rows = (long long)a.dims[0] * a.dims[1] * a.dims[2];
+  if (r >= rows) return;
+  const int z = (int)(r % a.dims[2]);
+  const int z_hi = min(a.size != nullptr ? a.size[2] : a.dims[2], a.dims[2]) - 1;
+  const float4* g4 = reinterpret_cast<const float4*>(a.grid);
+  pairs[2 * r] = __ldg(g4 + r);
+  pairs[2 * r + 1] = __ldg(g4 + (z < z_hi ? r + 1 : r));
+}
+
+__global__ void __launch_bounds__(MTT_INTERP_THREADS)
+grid_interp_forward_pairs_kernel(const __grid_constant__ MttInterpArgs a,
+                                 const float4* __restrict__ pairs) {
+  const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
+  if (p >= a.n) return;
+  MttAxes ax;
+  mtt_point_axes(a, p, ax);
+  // Axis 2: the pair at the lower corner, clipped; the weights of its rows.
+  // A lower corner at -1 clips to row 0, which is then the upper corner.
+  const int i0 = ax.i0[2];
+  const int zp = i0 < 0 ? 0 : (i0 > ax.hi[2] ? ax.hi[2] : i0);
+  const float wz0 = (i0 >= 0 && i0 < ax.n[2]) ? 1.f - ax.fr[2] : 0.f;
+  const float wz1 = (i0 + 1 >= 0 && i0 + 1 < ax.n[2]) ? ax.fr[2] : 0.f;
+  const float e0 = i0 < 0 ? wz1 : wz0, e1 = i0 < 0 ? 0.f : wz1;
+  float4 v[8];
+  float wxy[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {  // corners of axes 0 and 1, axis 0 slowest
+    float wc = 1.f;
+    bool ok = true;
+    int ic[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int bit = (c >> (1 - k)) & 1;
+      const int ik = ax.i0[k] + bit;
+      ok = ok && ik >= 0 && ik < ax.n[k];
+      ic[k] = ik > ax.hi[k] ? ax.hi[k] : (ik < 0 ? 0 : ik);
+      wc *= bit ? ax.fr[k] : 1.f - ax.fr[k];
+    }
+    const long long row = ((long long)ic[0] * a.dims[1] + ic[1]) * a.dims[2] + zp;
+    v[2 * c] = __ldg(pairs + 2 * row);
+    v[2 * c + 1] = __ldg(pairs + 2 * row + 1);
+    wxy[c] = ok ? wc : 0.f;
+  }
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const float w0 = wxy[c] * e0, w1 = wxy[c] * e1;
+    acc.x = fmaf(w1, v[2 * c + 1].x, fmaf(w0, v[2 * c].x, acc.x));
+    acc.y = fmaf(w1, v[2 * c + 1].y, fmaf(w0, v[2 * c].y, acc.y));
+    acc.z = fmaf(w1, v[2 * c + 1].z, fmaf(w0, v[2 * c].z, acc.z));
+    acc.w = fmaf(w1, v[2 * c + 1].w, fmaf(w0, v[2 * c].w, acc.w));
+  }
+  reinterpret_cast<float4*>(a.out)[p] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -286,16 +381,57 @@ extern "C" {
 // error of their launches (0 = ok).  Neither synchronises nor allocates.  This
 // library links its own CUDA runtime, whose current device is not PyTorch's:
 // each sets it from the caller's tensors.
-int mtt_grid_interp_forward(const MttInterpArgs* a, int device, void* stream) {
+//
+// The forward takes the path ops/tiled_interp.py::interp_forward_path picks:
+// MTT_FWD_L2, one thread per point from the table; MTT_FWD_STAGED, the table
+// copied to each block's shared memory, one wave of blocks; MTT_FWD_PAIRS
+// (F = 4), the table copied
+// in pairs into `pairs` (8 * rows floats, 16-byte aligned), then one thread per
+// point.
+int mtt_grid_interp_forward(const MttInterpArgs* a, int path, float* pairs, int device,
+                            void* stream) {
   if (a->g != nullptr || a->gx != nullptr) return (int)cudaErrorInvalidValue;
   const int bad = mtt_interp_check(*a);
   if (bad != 0) return bad;
+  if (path == MTT_FWD_PAIRS && (a->fdim != 4 || !a->vec4 || pairs == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   if (a->n == 0) return 0;
   MTT_TRY(cudaSetDevice(device));
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool f4 = a->fdim == 4 && a->vec4;
   const long long blocks = (a->n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  grid_interp_forward_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0,
-                               (cudaStream_t)stream>>>(*a);
+  if (path == MTT_FWD_L2) {
+    (f4 ? grid_interp_forward_kernel<4> : grid_interp_forward_kernel<0>)
+        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a);
+    return (int)cudaGetLastError();
+  }
+  const long long rows = (long long)a->dims[0] * a->dims[1] * a->dims[2];
+  if (path == MTT_FWD_PAIRS) {
+    float4* p4 = reinterpret_cast<float4*>(pairs);
+    grid_interp_pair_pack_kernel<<<(unsigned)((rows + MTT_INTERP_THREADS - 1) /
+                                              MTT_INTERP_THREADS),
+                                   MTT_INTERP_THREADS, 0, s>>>(*a, p4);
+    MTT_TRY(cudaGetLastError());
+    grid_interp_forward_pairs_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a, p4);
+    return (int)cudaGetLastError();
+  }
+  if (path != MTT_FWD_STAGED) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const MttInterpArgs) =
+      f4 ? grid_interp_forward_staged_kernel<4> : grid_interp_forward_staged_kernel<0>;
+  const long long floats = rows * a->fdim;
+  if (floats * 4 > 232448) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(((floats + 3) / 4) * 16);
+  MTT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  int sms = 0, occ = 0;
+  MTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  MTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, MTT_STAGED_THREADS,
+                                                        smem));
+  if (occ < 1) occ = 1;
+  const long long tiles = (a->n + MTT_STAGED_THREADS - 1) / MTT_STAGED_THREADS;
+  const long long wave = (long long)sms * occ;
+  kernel<<<(unsigned)(tiles < wave ? tiles : wave), MTT_STAGED_THREADS, smem, s>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // The ReLU MLP on the tensor cores: a warp runs a tile of 16 * MT points
 // through every layer with mma.sync m16n8k8 in 3xTF32, activations kept in
 // registers from layer to layer; an output layer of at most 4 columns is FP32
-// dot products on the CUDA cores instead.  Used by mlp_decode.cu; a caller
-// that makes its own input rows (the fused kernel's lerped features, say)
-// fills the first layer's A fragments itself in place of mtt_mma_load_rows.
+// dot products on the CUDA cores instead.  Used by mlp_decode.cu, which reads
+// its input rows with mtt_mma_load_rows, and by fused_interp_decode.cu, which
+// fills the first layer's A fragments with its lerped features instead.
 //
 // Numerics.  Each operand v is split into two TF32 parts, hi = rna(v) and
 // lo = v - hi cut to TF32, and a product is lo*hi + hi*lo + hi*hi summed in
@@ -26,17 +26,21 @@
 // W[8kt + 2q + 1][8nt + g], the lane's b0 and b1, so a warp's read is 256
 // contiguous bytes.  Its bias follows, zero-padded to a multiple of 8.  The
 // split into hi and lo is done as the fragments are read, which keeps the
-// staged weights at one float each: every MLP that the one-thread-per-point
-// layout of mtt_mlp.cuh fits in a block fits here.  The Python wrapper
-// computes the offsets (ops/fused_decode.py::mma_layout); mtt_mma_check
-// holds them to it.
+// staged weights at one float each.  The Python wrapper computes the offsets
+// (ops/fused_decode.py::mma_layout); mtt_mma_check holds them to it.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "mtt_mlp.cuh"  // MTT_MAX_LAYERS, MTT_MAX_WIDTH and mtt_limits()
+#include "mtt_common.cuh"
+
+// The compile-time maxima; the Python wrapper mirrors them and checks its
+// mirror against mtt_limits().
+#define MTT_MAX_LEVELS 8
+#define MTT_MAX_LAYERS 8
+#define MTT_MAX_WIDTH 128
 
 #define MTT_MMA_THREADS 128
 #define MTT_MMA_WARPS (MTT_MMA_THREADS / 32)
@@ -370,3 +374,14 @@ static inline int mtt_mma_launch(void (*kernel)(const Args), const Args& a, long
   kernel<<<blocks, MTT_MMA_THREADS, smem_bytes, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+extern "C" {
+
+// The compile-time maxima, for the wrapper to check its mirror of them.
+void mtt_limits(int* out3) {
+  out3[0] = MTT_MAX_LEVELS;
+  out3[1] = MTT_MAX_LAYERS;
+  out3[2] = MTT_MAX_WIDTH;
+}
+
+}  // extern "C"

@@ -5,9 +5,12 @@
 The fused op has three parts:
 
   * :func:`fused_interp_decode_cuda`, the wrapper of the CUDA kernel
-    ``csrc/fused_interp_decode.cu``.  It validates its inputs, launches on
-    PyTorch's current stream, counts its launches in ``.launches`` and
-    raises on what the kernel does not take.  It never falls back.
+    ``csrc/fused_interp_decode.cu`` (the lerp of every level, from tables
+    staged in shared memory where they fit, feeding the decode kernel's
+    tensor-core MLP; :func:`fused_layout`).  It validates its inputs,
+    launches on PyTorch's current stream, counts its launches in
+    ``.launches`` and raises on what the kernel does not take.  It never
+    falls back.
   * :func:`fused_interp_decode_plain`, ``multi_level_interpolate`` followed
     by ``grid_decode``: the kernel's plain version, used for CPU tensors and
     as the reference the kernel is held to.
@@ -37,40 +40,23 @@ import torch
 from miso_tpu_torch.ops.interp import grid_decode, multi_level_interpolate
 from miso_tpu_torch.ops.mlp import mlp_apply
 
-# Mirrors of the kernels' compile-time maxima (csrc/mtt_mlp.cuh), checked
-# against each library when it is loaded.  THREADS is the fused kernel's block.
+# Mirrors of the kernels' compile-time maxima (csrc/mtt_mma.cuh), checked
+# against each library when it is loaded.
 MAX_LEVELS = 8
 MAX_LAYERS = 8
 MAX_WIDTH = 128
-THREADS = 64
 SMEM_LIMIT = 232448          # bytes of shared memory one H100 block may use
+# The fused kernel's block: 4 warps (MTT_MMA_THREADS), registers cut for 3
+# resident blocks an SM (MTT_MMA_MIN_BLOCKS); its tables are staged within
+# the shared memory that leaves a block.
+MMA_WARPS = 4
+FUSED_BLOCKS_PER_SM = 3
 
 
 class _Level(ctypes.Structure):
     _fields_ = [("grid", ctypes.c_void_p), ("size", ctypes.c_void_p),
-                ("dims", ctypes.c_int * 3)]
-
-
-class _Mlp(ctypes.Structure):
-    _fields_ = [("n_layers", ctypes.c_int), ("max_width", ctypes.c_int),
-                ("w_floats", ctypes.c_int), ("smem_bytes", ctypes.c_int),
-                ("W", ctypes.c_void_p * MAX_LAYERS),
-                ("b", ctypes.c_void_p * MAX_LAYERS),
-                ("dims", ctypes.c_int * (MAX_LAYERS + 1)),
-                ("outp", ctypes.c_int * MAX_LAYERS),
-                ("woff", ctypes.c_int * MAX_LAYERS),
-                ("boff", ctypes.c_int * MAX_LAYERS)]
-
-
-# The MLP's fields are anonymous: ``args.outp`` reads ``args.mlp.outp``.
-class _FusedArgs(ctypes.Structure):
-    _anonymous_ = ("mlp",)
-    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
-                ("ignore", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("n_levels", ctypes.c_int),
-                ("fdim", ctypes.c_int),
-                ("levels", _Level * MAX_LEVELS),
-                ("mlp", _Mlp)]
+                ("dims", ctypes.c_int * 3), ("staged", ctypes.c_int),
+                ("soff", ctypes.c_int)]
 
 
 class _MmaMlp(ctypes.Structure):
@@ -83,6 +69,18 @@ class _MmaMlp(ctypes.Structure):
                 ("boff", ctypes.c_int * MAX_LAYERS)]
 
 
+class _FusedArgs(ctypes.Structure):
+    _fields_ = [("x", ctypes.c_void_p), ("bound", ctypes.c_void_p),
+                ("ignore", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("n_levels", ctypes.c_int),
+                ("fdim", ctypes.c_int), ("vec4", ctypes.c_int),
+                ("rows_per_warp", ctypes.c_int), ("slice_off", ctypes.c_int),
+                ("smem_bytes", ctypes.c_int),
+                ("levels", _Level * MAX_LEVELS),
+                ("mlp", _MmaMlp)]
+
+
+# The MLP's fields are anonymous: ``args.woff`` reads ``args.mlp.woff``.
 class _DecodeArgs(ctypes.Structure):
     _anonymous_ = ("mlp",)
     _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
@@ -93,28 +91,9 @@ def _round_up(v, m):
     return (v + m - 1) // m * m
 
 
-def smem_layout(dims: Sequence[int]):
-    """Shared-memory layout of the kernel for MLP widths ``dims``.
-
-    Each layer's output width is zero-padded to a multiple of 16 (of 4 below
-    16); W[l] then b[l] are staged back to back; two activation buffers of
-    ``max(dims)`` floats per thread follow.  Returns (outp, woff, boff,
-    w_floats, max_width, smem_bytes).
-    """
-    outp = [_round_up(o, 16) if o >= 16 else _round_up(o, 4) for o in dims[1:]]
-    woff, boff, off = [], [], 0
-    for i, op in enumerate(outp):
-        woff.append(off)
-        off += dims[i] * op
-        boff.append(off)
-        off += op
-    max_width = max(dims)
-    return outp, woff, boff, off, max_width, (off + 2 * max_width * THREADS) * 4
-
-
 def mma_layout(dims: Sequence[int]):
-    """Shared-memory layout of the decode kernel (``csrc/mtt_mma.cuh``) for
-    MLP widths ``dims``.
+    """Shared-memory layout of the MLP of the decode and fused kernels
+    (``csrc/mtt_mma.cuh``) for MLP widths ``dims``.
 
     Each layer's weights, zero-padded to multiples of 8 in both dimensions
     and stored in the order the warps' mma fragments read them, then its bias
@@ -128,6 +107,34 @@ def mma_layout(dims: Sequence[int]):
         boff.append(off)
         off += _round_up(fan_out, 8)
     return woff, boff, off, off * 4
+
+
+def fused_layout(dims: Sequence[int], level_bytes: Sequence[int]):
+    """Shared-memory layout of the fused kernel for MLP widths ``dims``
+    (``dims[0]`` = levels x F) and levels whose storage takes
+    ``level_bytes``.
+
+    The weights as :func:`mma_layout` stages them; then each of the 4 warps'
+    feature slices, 8 * ceil(dims[0] / 8) columns of rows_per_warp + 4 floats
+    (rows_per_warp: 32 points a warp tile when every width fits 64, else 16,
+    as the decode kernel takes them); then each staged level's table in level
+    order, 16-byte aligned.  Which levels are staged is
+    ``ops/tiled_interp.py::staged_tables`` for the shared memory left beside
+    the weights and slices at 3 blocks an SM.  Returns a dict of woff, boff,
+    w_floats, rows_per_warp, slice_off, staged, soff (float offsets, 0 where
+    not staged) and smem_bytes.
+    """
+    from miso_tpu_torch.ops.tiled_interp import staged_tables
+    woff, boff, w_floats, _ = mma_layout(dims)
+    rows = 32 if _round_up(max(dims), 8) // 8 <= 8 else 16
+    off = w_floats + MMA_WARPS * _round_up(dims[0], 8) * (rows + 4)
+    staged = staged_tables(level_bytes, 4 * off, FUSED_BLOCKS_PER_SM)
+    soff = []
+    for nbytes, st in zip(level_bytes, staged):
+        soff.append(off if st else 0)
+        off += _round_up(nbytes, 16) // 4 if st else 0
+    return dict(woff=woff, boff=boff, w_floats=w_floats, rows_per_warp=rows,
+                slice_off=w_floats, staged=staged, soff=soff, smem_bytes=4 * off)
 
 
 def _check_tensors(named, device):
@@ -199,30 +206,34 @@ def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
             if s.device != x.device or not s.is_contiguous():
                 raise ValueError(f"sizes[{l}] must be contiguous and on {x.device}")
     return _check_mlp(decoder_params, n_levels * fdim, x.device, bias_required=True,
-                      smem_bytes=lambda dims: smem_layout(dims)[-1])
+                      smem_bytes=lambda dims: fused_layout(dims, [])["smem_bytes"])
 
 
-def _pack_mlp(m, decoder_params, dims):
-    outp, woff, boff, w_floats, max_width, smem = smem_layout(dims)
-    m.n_layers, m.max_width, m.w_floats, m.smem_bytes = (
-        len(decoder_params), max_width, w_floats, smem)
+def _pack_mlp(m, decoder_params, dims, woff, boff, w_floats):
+    m.n_layers, m.w_floats, m.smem_bytes = len(decoder_params), w_floats, 4 * w_floats
     for i, (W, b) in enumerate(decoder_params):
         m.W[i], m.b[i] = W.data_ptr(), None if b is None else b.data_ptr()
-        m.outp[i], m.woff[i], m.boff[i] = outp[i], woff[i], boff[i]
+        m.woff[i], m.boff[i] = woff[i], boff[i]
     m.dims[:len(dims)] = dims
 
 
 def pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims):
     """The fused kernel's argument struct for validated inputs and ``out``."""
+    from miso_tpu_torch.ops.tiled_interp import table_bytes
+    lay = fused_layout(dims, [table_bytes(g) for g in grids])
     a = _FusedArgs()
     a.x, a.bound, a.out = x.data_ptr(), bound.data_ptr(), out.data_ptr()
     a.ignore = ignore_level.data_ptr() if ignore_level is not None else None
     a.n, a.n_levels, a.fdim = x.shape[0], len(grids), grids[0].shape[-1]
+    a.vec4 = int(a.fdim % 4 == 0 and all(g.data_ptr() % 16 == 0 for g in grids))
+    a.rows_per_warp, a.slice_off, a.smem_bytes = (
+        lay["rows_per_warp"], lay["slice_off"], lay["smem_bytes"])
     for l, g in enumerate(grids):
         a.levels[l].grid = g.data_ptr()
         a.levels[l].size = sizes[l].data_ptr() if sizes is not None else None
         a.levels[l].dims[:] = list(g.shape[:3])
-    _pack_mlp(a.mlp, decoder_params, dims)
+        a.levels[l].staged, a.levels[l].soff = int(lay["staged"][l]), lay["soff"][l]
+    _pack_mlp(a.mlp, decoder_params, dims, lay["woff"], lay["boff"], lay["w_floats"])
     return a
 
 
@@ -240,13 +251,12 @@ def _library(name: str = "fused_interp_decode"):
     getattr(lib, launcher).argtypes = [ctypes.POINTER(args), ctypes.c_int,
                                        ctypes.c_void_p]
     getattr(lib, launcher).restype = ctypes.c_int
-    if name == "mlp_decode":
-        lib.mtt_mlp_decode_occupancy.argtypes = [
-            ctypes.POINTER(_DecodeArgs), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        lib.mtt_mlp_decode_occupancy.restype = ctypes.c_int
-    limits = (ctypes.c_int * 4)()
+    occupancy = getattr(lib, launcher + "_occupancy")
+    occupancy.argtypes = [ctypes.POINTER(args), ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    occupancy.restype = ctypes.c_int
+    limits = (ctypes.c_int * 3)()
     lib.mtt_limits(limits)
-    if tuple(limits) != (MAX_LEVELS, MAX_LAYERS, MAX_WIDTH, THREADS):
+    if tuple(limits) != (MAX_LEVELS, MAX_LAYERS, MAX_WIDTH):
         raise RuntimeError(f"kernel limits {tuple(limits)} differ from the "
                            "wrapper's mirror of them")
     return lib
@@ -284,6 +294,29 @@ def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
 
 
 fused_interp_decode_cuda.launches = 0
+
+
+def fused_interp_decode_occupancy(grids, x, bound, decoder_params, sizes=None,
+                                  ignore_level=None):
+    """The fused kernel that ``fused_interp_decode_cuda`` would launch on
+    these inputs, from the CUDA occupancy calculator: a dict of its resident
+    blocks per SM, threads per block, points per warp tile, shared-memory
+    bytes per block and which levels it stages."""
+    dims = _check_args(grids, x, bound, decoder_params, sizes, ignore_level)
+    out = torch.empty((0, dims[-1]), dtype=torch.float32, device=x.device)
+    a = pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims)
+    return dict(_occupancy(_library(), "mtt_fused_interp_decode", a, x.device),
+                smem_bytes=a.smem_bytes,
+                staged=[bool(a.levels[l].staged) for l in range(len(grids))])
+
+
+def _occupancy(lib, launcher, args, device):
+    got = (ctypes.c_int * 3)()
+    code = getattr(lib, launcher + "_occupancy")(ctypes.byref(args), device.index, got)
+    if code != 0:
+        raise RuntimeError(f"{launcher} occupancy query failed: "
+                           + lib.mtt_error_string(code).decode())
+    return dict(blocks_per_sm=got[0], threads=got[1], rows_per_warp=got[2])
 
 
 def fused_interp_decode_plain(grids, x, bound, decoder_params, sizes=None,
@@ -423,13 +456,7 @@ def mlp_decode_occupancy(decoder_params, x: torch.Tensor):
     per SM, threads per block, points per warp tile and shared-memory bytes
     per block."""
     a, _ = _decode_args(decoder_params, x)
-    got = (ctypes.c_int * 3)()
-    lib = _library("mlp_decode")
-    code = lib.mtt_mlp_decode_occupancy(ctypes.byref(a), x.device.index, got)
-    if code != 0:
-        raise RuntimeError("mlp_decode occupancy query failed: "
-                           + lib.mtt_error_string(code).decode())
-    return dict(blocks_per_sm=got[0], threads=got[1], rows_per_warp=got[2],
+    return dict(_occupancy(_library("mlp_decode"), "mtt_mlp_decode", a, x.device),
                 smem_bytes=a.smem_bytes)
 
 

@@ -16,7 +16,12 @@ this module computes, in the caller's point order:
     calls in ``.launches`` and raise on what the kernels do not take.  They
     never fall back.
   * :func:`interp_grad_copies`, how many copies of the table the backward
-    spreads its atomics over, computed here and handed to the kernels.
+    spreads its atomics over; :func:`staged_tables`, which tables a kernel
+    copies to each block's shared memory before it gathers from them (the
+    forward here, the fused kernel of ``ops/fused_decode.py``); and
+    :func:`interp_forward_path`, where the forward gathers from (shared
+    memory, a paired copy of the table, or the table in L2), all computed
+    here and handed to the kernels.
   * :func:`grid_interpolate_plain` (``ops/interp.py::grid_interpolate``) and
     :func:`grid_interpolate_grad_plain` (an ``index_add_`` scatter plus the
     analytic points' gradient): the kernels' plain versions, used for CPU
@@ -87,6 +92,63 @@ def interp_grad_copies(dims: Sequence[int], fdim: int, n: int) -> int:
     return max(1, copies)
 
 
+# Shared memory of one H100 SM, and what the runtime reserves of it for each
+# resident block.  A kernel whose tables are staged keeps a given number of
+# blocks resident an SM; a table is staged when it fits what that leaves.
+SM_SMEM = 233472
+BLOCK_RESERVED_SMEM = 1024
+# The forward's staged kernel runs 1024-thread blocks, two an SM.
+INTERP_STAGED_BLOCKS = 2
+# The forward's paths (csrc/grid_interp.cu MTT_FWD_*), and the fewest points a
+# call copies its table for: measured on the H100, a copy (to shared memory
+# or in pairs) is repaid at 1e6 points and not at 2^15 or 2^18 (PERF.md).
+FORWARD_PATHS = {"l2": 0, "staged": 1, "pairs": 2}
+COPY_MIN_POINTS = 1 << 19
+
+
+def smem_budget(blocks_per_sm: int) -> int:
+    """Shared memory one block may take with ``blocks_per_sm`` resident."""
+    return SM_SMEM // blocks_per_sm - BLOCK_RESERVED_SMEM
+
+
+def staged_tables(table_bytes: Sequence[int], other_bytes: int,
+                  blocks_per_sm: int) -> list:
+    """Which tables a kernel copies to each block's shared memory: the
+    smallest first, each while it fits the block's budget
+    (:func:`smem_budget`) after ``other_bytes`` and the tables already
+    staged, each rounded up to 16 bytes.  The rest are read from global
+    memory (L2).  Returns one bool per table, in the given order."""
+    left = smem_budget(blocks_per_sm) - other_bytes
+    staged = [False] * len(table_bytes)
+    for i in sorted(range(len(table_bytes)), key=lambda i: table_bytes[i]):
+        need = -(-table_bytes[i] // 16) * 16
+        if need <= left:
+            staged[i] = True
+            left -= need
+    return staged
+
+
+def interp_forward_path(grid: torch.Tensor, n: int, vec4: bool) -> str:
+    """Where the forward gathers a call's rows from: ``"staged"``, a copy of
+    the table in each block's shared memory, where :func:`staged_tables`
+    lets it fit; else, at F = 4 with float4 rows (``vec4``), ``"pairs"``, a
+    copy of the table in 32-byte pairs along axis 2; else, and for every
+    call of fewer than ``COPY_MIN_POINTS`` points, ``"l2"``, the table
+    itself.  (A pair of wider rows spans several L2 sectors anyway: at F = 8
+    and 12 the pairs measured slower than the table.)"""
+    if n < COPY_MIN_POINTS:
+        return "l2"
+    if staged_tables([table_bytes(grid)], 0, INTERP_STAGED_BLOCKS)[0]:
+        return "staged"
+    return "pairs" if vec4 and grid.shape[-1] == 4 else "l2"
+
+
+def table_bytes(grid: torch.Tensor) -> int:
+    """Bytes of a level's storage, padded rows included: what a staged copy
+    holds."""
+    return grid.numel() * grid.element_size()
+
+
 @functools.cache
 def _library():
     from miso_tpu_torch.ops._build import load_library
@@ -94,7 +156,7 @@ def _library():
     lib.mtt_error_string.argtypes = [ctypes.c_int]
     lib.mtt_error_string.restype = ctypes.c_char_p
     lib.mtt_grid_interp_forward.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_int,
-                                            ctypes.c_void_p]
+                                            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     lib.mtt_grid_interp_backward.argtypes = [ctypes.POINTER(_InterpArgs),
                                              ctypes.POINTER(_GradPlanArgs), ctypes.c_int,
                                              ctypes.c_void_p]
@@ -148,11 +210,13 @@ def _pack(grid, x, bound, size, out, g=None, gx=None):
     return a
 
 
-def _launch(name, device, *structs):
+def _launch(name, device, *args):
+    """Call entry ``name`` on ``args`` (structs by reference, ints as they
+    are), the device and PyTorch's current stream; raise on its error."""
     lib = _library()
     stream = torch.cuda.current_stream(device).cuda_stream
-    code = getattr(lib, name)(*(ctypes.byref(s) for s in structs), device.index,
-                              ctypes.c_void_p(stream))
+    code = getattr(lib, name)(*(ctypes.byref(a) if isinstance(a, ctypes.Structure) else a
+                                for a in args), device.index, ctypes.c_void_p(stream))
     if code != 0:
         raise RuntimeError(f"{name} kernel launch failed: "
                            + lib.mtt_error_string(code).decode())
@@ -162,13 +226,21 @@ def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tens
                           size: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch the forward kernel: (X, Y, Z, F) grid, (N, 3) points -> (N, F).
 
-    ``size`` is an optional (3,) int32 logical size for padded storage.  No
-    autograd: see :func:`grid_interpolate_dispatch`.
+    ``size`` is an optional (3,) int32 logical size for padded storage.  The
+    rows are gathered where :func:`interp_forward_path` says.  No autograd:
+    see :func:`grid_interpolate_dispatch`.
     """
     _check(grid, x, bound, size)
     out = torch.empty((x.shape[0], grid.shape[-1]), dtype=torch.float32,
                       device=x.device)
-    _launch("mtt_grid_interp_forward", x.device, _pack(grid, x, bound, size, out))
+    a = _pack(grid, x, bound, size, out)
+    path = interp_forward_path(grid, x.shape[0], bool(a.vec4))
+    # Freed on return, while the kernels may still run: PyTorch's caching
+    # allocator hands the block out again only in this stream's order.
+    pairs = torch.empty(2 * grid.numel(), dtype=torch.float32,
+                        device=x.device) if path == "pairs" else None
+    _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS[path],
+            None if pairs is None else pairs.data_ptr())
     grid_interpolate_cuda.launches += 1
     return out
 

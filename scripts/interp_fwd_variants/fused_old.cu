@@ -1,23 +1,19 @@
-// The ReLU MLP of one point per thread, shared by fused_interp_decode.cu (after
-// the corner lerp) and mlp_decode.cu (the MLP alone), and the host-side launch
-// both use.
-//
-// Layout: a block of MTT_THREADS threads stages every layer's weights and
-// biases once in shared memory, each layer's output width zero-padded to
-// outp[l] (a multiple of 16, or of 4 below 16) so a k-step reads them as
-// float4 broadcasts; W[l] then b[l] back to back at woff[l], boff[l].  Two
-// activation buffers of max_width floats per thread follow, one column per
-// thread ([unit][thread], bank-conflict free), ping-ponged between layers.
-// A null bias is a zero bias.  The Python wrapper computes the layout
-// (ops/fused_decode.py::smem_layout) and mirrors the maxima below, which it
-// checks against mtt_limits().
+// The fused interp+decode kernel as the port first built it, kept to be
+// measured against the shipped one (scripts/interp_fwd_variants.py): one
+// thread per point, grid-stride over 64-point tiles with one resident wave of
+// blocks; per level, corners and weights as mtt_grid.cuh computes them, F
+// features gathered from the L2-resident tables and lerped in registers,
+// scaled by 1 - ignore_level, into the thread's activation column; the MLP
+// with weights and biases staged once per block in shared memory, each
+// layer's output width zero-padded to outp[l] (a multiple of 16, or of 4
+// below 16), W[l] then b[l] back to back at woff[l], boff[l], and two
+// activation buffers of max_width floats per thread ([unit][thread]),
+// ping-ponged between layers; FP32 on the CUDA cores.  Its host layout is
+// scripts/interp_fwd_variants.py::old_fused_layout.  u is rounded as
+// mtt_grid.cuh rounds it for every kernel now (op by op; the first version
+// contracted it into an FMA).
 
-#pragma once
-
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include "mtt_common.cuh"
+#include "mtt_grid.cuh"
 
 #define MTT_MAX_LEVELS 8
 #define MTT_MAX_LAYERS 8
@@ -174,14 +170,90 @@ static inline int mtt_launch_mlp_kernel(void (*kernel)(const Args), const Args& 
   return (int)cudaGetLastError();
 }
 
+struct MttLevel {
+  const float* grid;     // (dims[0], dims[1], dims[2], fdim), row-major
+  const int32_t* size;   // (3,) logical size on the device, or null
+  int dims[3];           // static storage shape (sets the strides)
+};
+
+struct MttFusedArgs {
+  const float* x;        // (n, 3) world coordinates
+  const float* bound;    // (3, 2) [lo, hi] per axis
+  const float* ignore;   // (n_levels,) 1 = level ignored, or null
+  float* out;            // (n, mlp.dims[mlp.n_layers])
+  long long n;
+  int n_levels;
+  int fdim;
+  MttLevel levels[MTT_MAX_LEVELS];
+  MttMlp mlp;
+};
+
+// __grid_constant__ lets the per-level and per-layer tables be indexed at run
+// time straight from parameter space, without a per-thread local copy.
+__global__ void __launch_bounds__(MTT_THREADS)
+old_fused_interp_decode_kernel(const __grid_constant__ MttFusedArgs a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x;
+  mtt_stage_mlp(a.mlp, smem, tid);
+  __syncthreads();
+  float* act0 = smem + a.mlp.w_floats;
+  float* act1 = act0 + a.mlp.max_width * MTT_THREADS;
+
+  float lo[3], ext[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    lo[k] = a.bound[2 * k];
+    ext[k] = a.bound[2 * k + 1] - lo[k];
+  }
+  const int F = a.fdim;
+  const int out_dim = a.mlp.dims[a.mlp.n_layers];
+
+  // Each thread touches only its own activation column, so the tile loop
+  // needs no block-level synchronisation.
+  for (long long base = (long long)blockIdx.x * MTT_THREADS; base < a.n;
+       base += (long long)gridDim.x * MTT_THREADS) {
+    const long long p = base + tid;
+    if (p >= a.n) continue;
+    float xp[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) xp[k] = a.x[3 * p + k];
+
+    for (int l = 0; l < a.n_levels; ++l) {
+      const MttLevel& lv = a.levels[l];
+      MttAxes ax;
+      mtt_axes(xp, lo, ext, lv.dims, lv.size, ax);
+      int lin[8];
+      float w[8];
+      mtt_corners(ax, lv.dims, lin, w);
+      const float* g = lv.grid;
+      const float scale = a.ignore != nullptr ? 1.f - a.ignore[l] : 1.f;
+      for (int f = 0; f < F; ++f) {
+        float acc = 0.f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          acc = fmaf(w[c], __ldg(g + (long long)lin[c] * F + f), acc);
+        }
+        act0[(l * F + f) * MTT_THREADS + tid] = acc * scale;
+      }
+    }
+    mtt_run_mlp(a.mlp, smem, act0, act1, a.out + p * out_dim, tid);
+  }
+}
+
 extern "C" {
 
-// The compile-time maxima, for the wrapper to check its mirror of them.
-void mtt_limits(int* out4) {
-  out4[0] = MTT_MAX_LEVELS;
-  out4[1] = MTT_MAX_LAYERS;
-  out4[2] = MTT_MAX_WIDTH;
-  out4[3] = MTT_THREADS;
+// Launches on `stream` of CUDA device `device` and returns cudaGetLastError()
+// of the launch (0 = ok).  Does not synchronise and allocates nothing.
+int vf_old_fused_interp_decode(const MttFusedArgs* args, int device, void* stream) {
+  const MttFusedArgs& a = *args;
+  if (a.n_levels < 1 || a.n_levels > MTT_MAX_LEVELS || a.fdim < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int bad = mtt_mlp_check(a.mlp, a.n_levels * a.fdim);
+  if (bad != 0) return bad;
+  return mtt_launch_mlp_kernel(old_fused_interp_decode_kernel, a, a.n, a.mlp.smem_bytes,
+                               device, stream);
 }
 
 }  // extern "C"

@@ -60,7 +60,7 @@ __device__ __forceinline__ void mtt_axes_of(const MttInterpArgs& a, const float 
     lo[k] = a.bound[2 * k];
     ext[k] = a.bound[2 * k + 1] - lo[k];
   }
-  mtt_axes(xp, lo, ext, a.dims, a.size, ax, /*round_each_op=*/true);
+  mtt_axes(xp, lo, ext, a.dims, a.size, ax);
 }
 
 __device__ __forceinline__ void mtt_point_axes(const MttInterpArgs& a, long long p,

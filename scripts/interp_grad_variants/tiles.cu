@@ -70,7 +70,7 @@ __device__ __forceinline__ void vt_point_axes(const MttInterpArgs& a, long long 
     ext[k] = a.bound[2 * k + 1] - lo[k];
     xp[k] = a.x[3 * p + k];
   }
-  mtt_axes(xp, lo, ext, a.dims, a.size, ax, /*round_each_op=*/true);
+  mtt_axes(xp, lo, ext, a.dims, a.size, ax);
 }
 
 __device__ __forceinline__ bool vt_any_corner_valid(const MttAxes& ax) {

@@ -15,6 +15,11 @@ import torch
 
 pytestmark = pytest.mark.cuda
 
+SCANNET_BOUND = [[-0.02, 10.38], [-0.01, 8.74], [-0.01, 3.03]]
+# A point of the ScanNet coarse level exactly on a cell face: u = 16 on axis 1
+# when rounded op by op (15.99999 through a fused multiply-add).
+ON_FACE = [1.4275164604187012, 8.010832786560059, 0.1370464414358139]
+
 
 @pytest.fixture
 def dev():
@@ -38,8 +43,8 @@ def _case(dev, n_levels, fdim, hidden, hidden_layers, out_dim, n=20000, seed=0):
 
 
 @pytest.mark.parametrize("shape", [(2, 4, 64, 1, 1), (3, 8, 64, 2, 3), (1, 1, 4, 0, 1),
-                                   (2, 4, 128, 1, 17)],
-                         ids=["scannet", "3lvl_F8_out3", "base", "wide_out17"])
+                                   (2, 4, 128, 1, 17), (2, 12, 64, 1, 1), (2, 36, 64, 1, 1)],
+                         ids=["scannet", "3lvl_F8_out3", "base", "wide_out17", "F12", "F36"])
 def test_kernel_matches_plain(dev, shape):
     from miso_tpu_torch.ops.fused_decode import (fused_interp_decode_cuda,
                                                  fused_interp_decode_plain)
@@ -64,6 +69,36 @@ def test_kernel_sized_storage(dev):
         sizes.append(torch.tensor(g.shape[:3], dtype=torch.int32, device=dev))
     got = fused_interp_decode_cuda(padded, x, bound, decoder, sizes)
     torch.testing.assert_close(got, fused_interp_decode_plain(grids, x, bound, decoder),
+                               atol=1e-4, rtol=1e-4)
+
+
+# (level shapes, F): the ScanNet levels (the fine one left in L2, the coarse
+# one staged), one level just under and one just over the fused kernel's
+# staging budget beside a 1-row level (8 -> 64 -> 64 -> 1 decoder).
+FUSED_PATHS = {"scannet": ([(105, 88, 31), (21, 18, 7)], [False, True]),
+               "budget_under": ([(1, 1, 3197), (1, 1, 1)], [True, True]),
+               "budget_over": ([(1, 1, 3198), (1, 1, 1)], [False, True])}
+
+
+@pytest.mark.parametrize("case", list(FUSED_PATHS), ids=list(FUSED_PATHS))
+def test_kernel_staged_and_l2_levels(dev, case):
+    """The fused kernel with levels staged in shared memory and left in L2,
+    against the plain version, 1e5 points and a point on a cell face."""
+    from miso_tpu_torch.ops.fused_decode import (fused_interp_decode_cuda,
+                                                 fused_interp_decode_occupancy,
+                                                 fused_interp_decode_plain)
+    from miso_tpu_torch.ops.mlp import mlp_init
+    shapes, staged = FUSED_PATHS[case]
+    gen = torch.Generator(device=dev).manual_seed(len(case))
+    bound = torch.tensor(SCANNET_BOUND, device=dev)
+    grids = [torch.randn((*s, 4), generator=gen, device=dev) for s in shapes]
+    decoder = mlp_init(8, 1, 64, 1, generator=torch.Generator().manual_seed(1), device=dev)
+    x = bound[:, 0] + (-0.05 + 1.1 * torch.rand((100000, 3), generator=gen, device=dev)) * (
+        bound[:, 1] - bound[:, 0])
+    x[0] = torch.tensor(ON_FACE, device=dev)
+    assert fused_interp_decode_occupancy(grids, x, bound, decoder)["staged"] == staged
+    torch.testing.assert_close(fused_interp_decode_cuda(grids, x, bound, decoder),
+                               fused_interp_decode_plain(grids, x, bound, decoder),
                                atol=1e-4, rtol=1e-4)
 
 
@@ -117,7 +152,6 @@ def test_grid_net_pallas_matches_xla_and_counts(dev):
         torch.testing.assert_close(a[k], b[k], atol=1e-6, rtol=1e-5)
 
 
-SCANNET_BOUND = [[-0.02, 10.38], [-0.01, 8.74], [-0.01, 3.03]]
 # The interp kernels' cases: (grid shape, points, where the points lie).  "F1",
 # "F4", "F12", "F36": the second level of _case's grids, whose rows take
 # enough atomics for the grad kernel's copies; a 45-row F = 1 table (copies
@@ -126,7 +160,11 @@ SCANNET_BOUND = [[-0.02, 10.38], [-0.01, 8.74], [-0.01, 3.03]]
 # 1e6 points in 16^3 cells of the ScanNet fine level; a grid of 7e6 rows;
 # storage padded beyond a logical size at F = 1, 4 and 12; no point and one
 # point; a point on a cell face of the ScanNet coarse level (u = 16 exactly
-# on axis 1 when rounded op by op, 15.99999 through a fused multiply-add).
+# on axis 1 when rounded op by op, 15.99999 through a fused multiply-add); a
+# table just under and just over the forward's staging budget (115,712 B), and
+# the forward's other paths at 1e6 points (ops/tiled_interp.py::
+# interp_forward_path): padded storage staged and in pairs, F = 12 in pairs,
+# F = 1 from L2.
 INTERP_CASES = {
     "F1": ((10, 8, 6, 1), 20000, "spread"), "F4": ((10, 8, 6, 4), 20000, "spread"),
     "F12": ((10, 8, 6, 12), 20000, "spread"), "F36": ((10, 8, 6, 36), 20000, "spread"),
@@ -143,8 +181,13 @@ INTERP_CASES = {
     "n0": ((10, 8, 6, 4), 0, "spread"), "n1": ((10, 8, 6, 4), 1, "spread"),
     "n0_large": ((40, 36, 30, 4), 0, "spread"), "n1_large": ((40, 36, 30, 4), 1, "spread"),
     "on_face": ((21, 18, 7, 4), 20000, "on_face"),
+    "staging_budget_under": ((8, 8, 113, 4), 10 ** 6, "spread"),
+    "staging_budget_over": ((8, 8, 114, 4), 10 ** 6, "spread"),
+    "padded_1e6": ((10, 8, 6, 4), 10 ** 6, "padded"),
+    "padded_large_1e6": ((40, 36, 30, 4), 10 ** 6, "padded"),
+    "F12_large_1e6": ((40, 36, 30, 12), 10 ** 6, "spread"),
+    "F1_large_1e6": ((40, 36, 30, 1), 10 ** 6, "spread"),
 }
-ON_FACE = [1.4275164604187012, 8.010832786560059, 0.1370464414358139]
 
 
 def _interp_case(dev, name):

@@ -239,7 +239,11 @@ def test_kernel_wrapper_rejects(rng, case):
 
 
 def test_kernel_arguments_layout(rng):
-    """The struct handed to the kernel at the ScanNet decoder widths."""
+    """The struct handed to the kernel at the ScanNet decoder widths: the
+    weights as the decode kernel stages them (8 x 8 tiles, biases padded to
+    8), then the 4 warps' feature slices (8 columns of 32 + 4 floats each),
+    then both levels' tables, 16-byte aligned, which fit the block's
+    staging budget at 3 blocks an SM."""
     grids, bound, decoder, x = _setup(rng, N=64)
     decoder = [(np.zeros((8, 64), np.float32), np.zeros(64, np.float32)),
                (np.zeros((64, 64), np.float32), np.zeros(64, np.float32)),
@@ -250,12 +254,16 @@ def test_kernel_arguments_layout(rng):
     assert dims == [8, 64, 64, 1]
     out = torch.empty((64, 1))
     a = fd.pack_args(tg, tx, tb, tp, None, ig, out, dims)
-    assert list(a.outp[:3]) == [64, 64, 4]
-    assert list(a.woff[:3]) == [0, 576, 4736]
-    assert list(a.boff[:3]) == [512, 4672, 4992]
-    assert a.w_floats == 4996 and a.max_width == 64
-    assert a.smem_bytes == (4996 + 2 * 64 * fd.THREADS) * 4
+    m = a.mlp
+    assert list(m.woff[:3]) == [0, 576, 4736]
+    assert list(m.boff[:3]) == [512, 4672, 5248]
+    assert m.w_floats == 5256 and m.smem_bytes == 5256 * 4
+    assert list(m.dims[:4]) == [8, 64, 64, 1] and m.W[1] == tp[1][0].data_ptr()
+    assert a.rows_per_warp == 32 and a.slice_off == 5256
+    assert [a.levels[l].staged for l in range(2)] == [1, 1]
+    assert [a.levels[l].soff for l in range(2)] == [5256 + 4 * 8 * 36, 6408 + 5 * 4 * 3 * 4]
+    assert a.smem_bytes == (6648 + 10 * 8 * 6 * 4) * 4
     assert a.x == tx.data_ptr() and a.out == out.data_ptr() and a.ignore == ig.data_ptr()
     assert a.levels[1].grid == tg[1].data_ptr() and a.levels[1].size is None
     assert list(a.levels[1].dims) == [10, 8, 6]
-    assert (a.n, a.n_levels, a.fdim, a.n_layers) == (64, 2, 4, 3)
+    assert (a.n, a.n_levels, a.fdim, a.vec4, m.n_layers) == (64, 2, 4, 1, 3)
