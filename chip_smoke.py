@@ -65,11 +65,33 @@ Phases, in order; any failure exits non-zero and prints no result:
                the trained model at the path's shapes (a 2^15-point batch,
                2^15 eikonal points, a 2^18-point lattice chunk), and the interp
                forward's times on the lattice chunk;
-  5. report  - the card, step times, kernel times against the bound, and the
+  5. slam    - demo/full_slam_scannet.py --synthetic through the port's
+               entry points: room_scene(5.0) and the demo's 24-frame orbit
+               simulated by SdfSequence, configs/rgbd/scannet.yaml through
+               load_config with the demo's overrides (13 m cube, 0.5 m / 0.1
+               m cells, 8 -> 32 -> 32 -> 1 decoder pretrained on the scene for
+               200 epochs, saved with save_pytree, loaded as the config's
+               pretrained_model and fixed), then SubmapSlam: the 50-iteration
+               init burst, and per frame odometry, Adam tracking (15
+               iterations) and a 15-iteration mapping burst drawn on the card
+               from the resident pool; ATE and rotation RMSE after Umeyama
+               alignment, beside the odometry-only trajectory's, which it
+               must beat, and under 3 cm; track and map ms per frame.  Then
+               the LM run (tests/test_slam.py's recipe): a grid trained on
+               keyframes 0-7, keyframe 5 perturbed, Tracker.track_lm with
+               configs/lidar/ncd_quad.yaml's tracking settings, which must
+               halve the translation error and end under 1.72 degrees.
+               Launches exact in both runs (per LM iteration 2 interp
+               forwards, 2 points-only interp backwards, 1 decode); the
+               kernels against their plain versions at the path's shapes, and
+               the points-only backward at 4096 points and at 1e6 points on
+               the ScanNet levels, timed beside the table-and-points call;
+  6. report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches: the interp, interp grad
-               and decode kernels' in phase 3's default-decode run and phase
-               4, the fused kernel's in phase 3's fused run); the last line
-               is {"ok": true, "device": ...}.
+               and decode kernels' in phase 3's default-decode run, phase 4
+               and phase 5, the points-only backward's in phase 5's LM run,
+               the fused kernel's in phase 3's fused run); the last line is
+               {"ok": true, "device": ...}.
 
 Imports torch, numpy, scipy and miso_tpu_torch only.  Needs one CUDA card.
 """
@@ -842,23 +864,27 @@ def mapping_batches(n, k, device):
 
 
 def kernel_counters():
-    """Each kernel wrapper whose ``launches`` a path zeroes and reads."""
+    """Each kernel wrapper's launch counter (wrapper, attribute) that a path
+    zeroes and reads: the interp backward counts its points-only mode apart."""
     from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda, mlp_decode_cuda
     from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
-    return {"interp": grid_interpolate_cuda, "interp_grad": grid_interpolate_grad_cuda,
-            "decode": mlp_decode_cuda, "fused": fused_interp_decode_cuda}
+    return {"interp": (grid_interpolate_cuda, "launches"),
+            "interp_grad": (grid_interpolate_grad_cuda, "launches"),
+            "interp_points_grad": (grid_interpolate_grad_cuda, "points_launches"),
+            "decode": (mlp_decode_cuda, "launches"),
+            "fused": (fused_interp_decode_cuda, "launches")}
 
 
 def _zero_counts(counters):
     from miso_tpu_torch.ops.tiled_interp import _GridInterp
-    for fn in counters.values():
-        fn.launches = 0
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     _GridInterp.recomputes = 0
 
 
 def _read_counts(counters):
     from miso_tpu_torch.ops.tiled_interp import _GridInterp
-    out = {k: fn.launches for k, fn in counters.items()}
+    out = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
     out["interp_recompute_backward"] = _GridInterp.recomputes
     return out
 
@@ -940,10 +966,12 @@ def phase_main_path():
     kernel once), then the same step on the fused kernel (once per step)."""
     log("  default decode (bench.py, configs/):")
     default = run_mapping_steps(SCANNET_MODEL, TIMED_STEPS,
-                                {"interp": 2, "interp_grad": 2, "decode": 1, "fused": 0})
+                                {"interp": 2, "interp_grad": 2, "interp_points_grad": 0,
+                                 "decode": 1, "fused": 0})
     log("  decoder.impl \"pallas\" (the fused kernel):")
     fused = run_mapping_steps(SCANNET_MODEL_FUSED, FUSED_TIMED_STEPS,
-                              {"interp": 0, "interp_grad": 0, "decode": 0, "fused": 1})
+                              {"interp": 0, "interp_grad": 0, "interp_points_grad": 0,
+                               "decode": 0, "fused": 1})
     return default, fused
 
 
@@ -1152,6 +1180,367 @@ def phase_mesh():
         lattice_interp_fwd=lattice_interp), kernel_errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: online SLAM of one submap (demo/full_slam_scannet.py --synthetic).
+# ---------------------------------------------------------------------------
+
+SLAM_FRAMES = 24
+# demo/full_slam_scannet.py:83-91: the sequence's sensor and sampling.
+SLAM_SEQ = dict(frame_samples=2 ** 13, frame_batchsize=4096, trunc_dist=0.3,
+                near_surface_std=0.1, odom_std_rad=0.002, odom_std_meter=0.005)
+# The submap frame is the first camera's: a cube that holds the room from
+# there (demo/full_slam_scannet.py:92-98).
+SLAM_BOUND = [[-6.5, 6.5], [-6.5, 6.5], [-6.5, 6.5]]
+SLAM_PRETRAIN_EPOCHS = 200
+MAX_ATE_M = 0.03
+# The LM run, tests/test_slam.py:120-140: a grid trained on keyframes 0-7,
+# keyframe 5 rotated by 0.03 rad about z and moved by (5, -4, 2) cm.
+LM_TRAIN_KFS = 8
+LM_TRAIN_EPOCHS = 120
+LM_KF = 5
+LM_ROT = [0.0, 0.0, 0.03]
+LM_SHIFT = [0.05, -0.04, 0.02]
+LM_MAX_ROT_DEG = float(np.degrees(0.03))
+
+
+def slam_config():
+    """configs/rgbd/scannet.yaml with demo/full_slam_scannet.py's synthetic
+    overrides (:97-119), through the port's load_config."""
+    from miso_tpu_torch.config import load_config
+    cfg = load_config(os.path.join(ROOT, "configs", "rgbd", "scannet.yaml"))
+    cfg["system"].update({"submap_size": 100, "submap_local_bound": SLAM_BOUND,
+                          "profile": True})
+    cfg["model"]["grid"].update({"base_cell_size": 0.5, "per_level_scale": 5.0,
+                                 "bound": SLAM_BOUND})
+    cfg["model"]["decoder"].update({"fix": False, "pretrained_model": None, "hidden_dim": 32})
+    cfg["model"]["pose"]["num_poses"] = 100
+    cfg["mapping"].update({"trunc_dist": 0.3, "finite_diff_eps": 0.05, "eik_trunc_dist": 0.3,
+                           "weight_fs": 0.2, "learning_rate": 3e-3, "use_stability": True})
+    cfg["tracking"].update({"solver": "adam", "loss_type": "L1", "learning_rate": 1e-3,
+                            "trunc_dist": None, "verbose": False})
+    return cfg
+
+
+def slam_sequence(n_frames=SLAM_FRAMES, seq_kw=SLAM_SEQ):
+    """room_scene(5.0, seed=0) and the demo's orbit, simulated on the host."""
+    from miso_tpu_torch.datasets.sequence import SdfSequence, orbit_trajectory
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.native import TriangleMesh
+    mesh = TriangleMesh(*room_scene(5.0, seed=0))
+    R, t = orbit_trajectory([0, 0, 0], 1.8, 1.4, n_frames, look_at=[0, 0, -0.5])
+    return mesh, SdfSequence(mesh, R, t, **seq_kw)
+
+
+def pretrain_decoder(mesh, cfg_model, device, epochs=SLAM_PRETRAIN_EPOCHS,
+                     batch=2 ** 13, total=2 ** 16):
+    """demo/full_slam_scannet.py::pretrain_decoder_synthetic: the decoder
+    trained with a grid on the scene's SDF, then kept."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.train.trainer import GridTrainer
+    ds = Sdf3D(mesh, batch_size=batch, total_samples=total, trunc_dist=0.3)
+    cfg = copy.deepcopy(cfg_model)
+    cfg["decoder"].update({"fix": False, "pretrained_model": None})
+    cfg["pose"] = {"optimize": False, "num_poses": 1}
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(7), device=device)
+    loss_fn = make_loss(tsdf_loss_3d, sdf_weight=3e3, sign_weight=1e2, eik_weight=0.0,
+                        trunc_dist=0.3)
+    GridTrainer({"optimizer": "adam", "learning_rate": 5e-3, "epochs": epochs,
+                 "max_epochs_in_level": epochs // 3,
+                 "grid_training_mode": "coordinate+joint"}, model, loss_fn, ds).train()
+    return tuple((W.detach(), b.detach()) for W, b in model.decoder_params)
+
+
+def _pose(R, t):
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, np.reshape(t, 3)
+    return T
+
+
+def odometry_trajectory(ds):
+    """(n, 4, 4): keyframe 0's pose composed with the odometry alone."""
+    T = [_pose(*ds.noisy_kf_pose_in_world(0))]
+    for k in range(ds.num_kfs - 1):
+        T.append(T[-1] @ ds.get_odometry_at_pose(k))
+    return np.stack(T)
+
+
+def run_online(cfg, ds, device, counters):
+    """SubmapSlam over the whole sequence; returns the report, the world
+    trajectory (n, 4, 4) and the grid."""
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.slam.submap_slam import SubmapSlam
+    grid = create_grid_net(cfg["model"], bound=cfg["system"]["submap_local_bound"],
+                           num_poses=cfg["system"]["submap_size"],
+                           generator=torch.Generator().manual_seed(0), device=device)
+    R0, t0 = ds.noisy_kf_pose_in_world(0)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    _zero_counts(counters)
+    t_start = time.perf_counter()
+    slam = SubmapSlam(grid, ds, ds, cfg, R0, t0)
+    sync()
+    init_s = time.perf_counter() - t_start
+    slam.run()
+    sync()
+    run_s = time.perf_counter() - t_start
+    counts = _read_counts(counters)
+    Rw, tw = slam.kf_poses_in_world()
+    T_est = np.stack([_pose(R, t) for R, t in zip(Rw, tw)])
+    m = cfg["mapping"]
+    map_steps = m.get("init_iterations", 50) + (ds.num_kfs - 1) * m.get("iters_per_frame", 15)
+    track_steps = (ds.num_kfs - 1) * 15
+    report = dict(frames=slam.num_keyframes, init_s=init_s, run_s=run_s, launches=counts,
+                  map_steps=map_steps, track_steps=track_steps,
+                  stage_ms={k: [float(v) for v in vs] for k, vs in slam.stage_ms.items()})
+    return report, T_est, slam.grid
+
+
+def run_lm_recovery(cfg, lidar_tracking, ds, device, counters, train_epochs=LM_TRAIN_EPOCHS):
+    """The LM run: a grid in world coordinates trained on keyframes 0-7 at
+    their true poses (features and stability, poses locked), keyframe 5
+    perturbed, then Tracker.track_lm with the LiDAR profile's settings.
+    Returns the report, the tracker and a batch of its last solve."""
+    from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+    from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.slam.tracker import Tracker
+    from miso_tpu_torch.train.trainer import GridTrainer
+    model = create_grid_net(cfg["model"], num_poses=ds.num_kfs,
+                            generator=torch.Generator().manual_seed(0), device=device)
+    kfs = list(range(LM_TRAIN_KFS))
+    for kf in kfs:
+        model.set_initial_kf_pose(kf, *ds.true_kf_pose_in_world(kf))
+    ds.select_keyframes(kfs)
+    loss_fn = make_loss(mapping_loss, loss_type="L1", weight_sdf=1.0, weight_eik=0.0,
+                        weight_fs=0.2, trunc_dist=0.3)
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    GridTrainer({"optimizer": "adam", "learning_rate": 5e-3, "epochs": train_epochs,
+                 "max_epochs_in_level": 40, "grid_training_mode": "coordinate+joint"},
+                model, loss_fn, ds,
+                mask_for_level=lambda m, level: grid_net_mask(m, level=level,
+                                                              pose=False)).train()
+    sync()
+    train_s = time.perf_counter() - t0
+    R_np, t_np = ds.true_kf_pose_in_world(LM_KF)
+    dR = se3.so3_exp(torch.tensor(LM_ROT)).numpy()
+    model.set_initial_kf_pose(LM_KF, R_np @ dR, t_np + np.asarray(LM_SHIFT, np.float32))
+    R_gt, t_gt = (torch.as_tensor(a, device=device) for a in (R_np, t_np))
+    tracker = Tracker(model, ds, {"tracking": lidar_tracking})
+    R0, t0_ = tracker.grid.updated_kf_pose(LM_KF)
+    err_t0 = float(torch.linalg.vector_norm(t0_ - t_gt))
+    err_r0 = float(se3.rotation_rmse_deg(R0[None], R_gt[None]))
+    sync()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    tracker.track_lm(LM_KF)
+    sync()
+    track_ms = 1e3 * (time.perf_counter() - t0)
+    counts = _read_counts(counters)
+    R1, t1 = tracker.grid.updated_kf_pose(LM_KF)
+    report = dict(train_s=train_s, train_epochs=train_epochs, err_t0_m=err_t0,
+                  err_r0_deg=err_r0, err_t1_m=float(torch.linalg.vector_norm(t1 - t_gt)),
+                  err_r1_deg=float(se3.rotation_rmse_deg(R1[None], R_gt[None])),
+                  iterations=int(lidar_tracking["lm_max_iter"]), track_lm_ms=track_ms,
+                  sample_ms=1e3 * tracker.last_sample_time,
+                  fov_overlap=tracker.latest_fov_overlap, launches=counts)
+    return report, tracker
+
+
+def _points_bounds(grid, x, bound):
+    """(ms, what bounds it) of one points-only backward: x and the cotangent
+    read once, the table's rows that these points' valid corners touch read
+    once (a gather needs no more of the table), d_x written; 2 FMA a corner
+    and feature for the dots and 2 a corner and axis for the weights'
+    derivatives."""
+    from miso_tpu_torch.ops.interp import corner_indices_and_weights
+    n, fdim = x.shape[0], grid.shape[-1]
+    lin, w = corner_indices_and_weights(x, bound, tuple(grid.shape[:3]))
+    rows = int(torch.unique(lin[w != 0]).numel())
+    nbytes = (x.numel() + n * fdim + rows * fdim + 3 * n + 6) * 4
+    return _bound(nbytes, 2.0 * 8 * (fdim + 3) * n)
+
+
+def _points_only_case(name, grid, x, bound, errs, seed):
+    """The points-only mode against its plain version, and its times beside
+    the table-and-points call, the plain version and grid_sample's backward
+    with only the input's gradient asked for."""
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain)
+    dev = x.device
+    cot = torch.randn((x.shape[0], grid.shape[-1]),
+                      generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    got = grid_interpolate_grad_cuda(grid, x, bound, cot, need_grid=False)
+    ref = grid_interpolate_grad_plain(grid, x, bound, cot, need_grid=False)
+    check(got[0] is None and ref[0] is None, f"{name}: a table gradient in the points-only mode")
+    _check_values(f"points_only_{name}", got[1], ref[1], errs)
+    call = lambda: grid_interpolate_grad_cuda(grid, x, bound, cot, need_grid=False)  # noqa: E731
+    vol, coords = _grid_sample_inputs(grid, x, bound)
+    coords_r = coords.clone().requires_grad_()
+    out = _grid_sample(vol, coords_r)
+    gout = cot.T.reshape(out.shape).contiguous()
+    both = lambda: grid_interpolate_grad_cuda(grid, x, bound, cot)  # noqa: E731
+    t = dict(grid=list(grid.shape), points=x.shape[0], ms=cuda_ms(call),
+             device_ms=_kernel_device_ms(call), table_and_points_ms=cuda_ms(both),
+             table_and_points_device_ms=_kernel_device_ms(both),
+             plain_ms=cuda_ms(lambda: grid_interpolate_grad_plain(grid, x, bound, cot,
+                                                                  need_grid=False)),
+             library_ms=cuda_ms(lambda: torch.autograd.grad(out, coords_r, gout,
+                                                            retain_graph=True)))
+    t["bound_ms"], t["bound_by"] = _points_bounds(grid, x, bound)
+    log(f"  points-only backward {name} {tuple(grid.shape)}, {x.shape[0]} points: call "
+        f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}), table and points "
+        f"{t['table_and_points_ms']:.4f} (device {t['table_and_points_device_ms']:.4f}), "
+        f"plain {t['plain_ms']:.4f}, grid_sample input-only "
+        f"backward {t['library_ms']:.4f}, bound {t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return t
+
+
+def _slam_kernel_checks(grid, ds, lm_grid, lm_batch):
+    """The slam path's kernels against their plain versions at its shapes: a
+    mapping batch of 11 x 4096 points and a tracking batch of 4096 on the
+    online run's grid (interp forward, table-and-points backward, decode);
+    the points-only backward on the LM run's grid at the tracker's 4096
+    points and on the ScanNet levels at 1e6 points."""
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
+    from miso_tpu_torch.ops.tiled_interp import (
+        grid_interpolate_cuda, grid_interpolate_grad_cuda, grid_interpolate_grad_plain,
+        grid_interpolate_plain)
+    errs, times = {}, {}
+    dev = grid.bound.device
+    gen = torch.Generator(device=dev).manual_seed(70)
+    ds.select_keyframes(list(range(11)))
+    b = ds.sample(np.random.default_rng(70))
+    R, t = grid.updated_kf_poses()
+    ids = torch.as_tensor(b["sample_frame_ids"], device=dev).long()
+    mapping = se3.transform_points_by_id(torch.as_tensor(b["coords_frame"], device=dev),
+                                         ids, R.detach(), t.detach()).contiguous()
+    decoder = tuple((W.detach(), bb.detach()) for W, bb in grid.decoder_params)
+    with torch.no_grad():
+        for name, x in (("mapping", mapping), ("tracking", mapping[:4096].contiguous())):
+            feats = []
+            for level, param in enumerate(grid.features):
+                table = param.detach()
+                f = grid_interpolate_cuda(table, x, grid.bound)
+                _check_values(f"slam_interp_{name}_L{level}", f,
+                              grid_interpolate_plain(table, x, grid.bound), errs)
+                feats.append(f)
+                cot = torch.randn(f.shape, generator=gen, device=dev)
+                d_grid, d_x = grid_interpolate_grad_cuda(table, x, grid.bound, cot)
+                r_grid, r_x = grid_interpolate_grad_plain(table, x, grid.bound, cot)
+                _check_grad(f"slam_grad_{name}_L{level}_table", d_grid, r_grid, errs)
+                _check_grad(f"slam_grad_{name}_L{level}_points", d_x, r_x, errs)
+            feats = torch.cat(feats, dim=-1)
+            _check_values(f"slam_decode_{name}", mlp_decode_cuda(decoder, feats),
+                          mlp_decode_plain(decoder, feats), errs)
+    for level, param in enumerate(lm_grid.features):
+        times[f"lm_L{level}"] = _points_only_case(f"lm_L{level}", param.detach(), lm_batch,
+                                                  lm_grid.bound, errs, 71 + level)
+    for seed, (name, bl, cell, n) in enumerate(INTERP_SHAPES[:2], start=73):
+        g_, x_, b_ = _grid_case(bl, cell, 4, n, seed)
+        times[name] = _points_only_case(name, g_, x_, b_, errs, seed)
+    return errs, times
+
+
+def _percentiles(ms):
+    ms = np.asarray(ms)
+    return dict(median=float(np.median(ms)), p90=float(np.percentile(ms, 90)))
+
+
+def phase_slam():
+    """demo/full_slam_scannet.py --synthetic through the port: the decoder
+    pretrained and fixed, the init burst, then per frame odometry,
+    Tracker.track (Adam) and a mapping burst; ATE against the ground truth
+    and against the odometry alone.  Then the LM run on the same sequence and
+    model.  Launch counts exact for both; the kernels held to their plain
+    versions at the path's shapes."""
+    import tempfile
+
+    from miso_tpu_torch.config import load_config
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.train.checkpoint import save_pytree
+    from miso_tpu_torch.utils.eval import trajectory_error
+
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    mesh, ds = slam_sequence()
+    seq_s = time.perf_counter() - t0
+    cfg = slam_config()
+    t0 = time.perf_counter()
+    decoder = pretrain_decoder(mesh, cfg["model"], dev)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    log(f"  sequence: {ds.num_kfs} frames simulated in {seq_s:.2f} s; decoder pretrained "
+        f"({SLAM_PRETRAIN_EPOCHS} epochs) in {pretrain_s:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decoder.npz")
+        save_pytree(path, decoder)
+        cfg["model"]["decoder"].update({"fix": True, "pretrained_model": path})
+        online, T_est, grid = run_online(cfg, ds, dev, counters)
+        lidar = load_config(os.path.join(ROOT, "configs", "lidar", "ncd_quad.yaml"))
+        lm, tracker = run_lm_recovery(cfg, dict(lidar["tracking"]), ds, dev, counters)
+
+    T_gt = np.stack([_pose(*ds.true_kf_pose_in_world(k)) for k in range(ds.num_kfs)])
+    ate = trajectory_error(T_est, T_gt, align=True)
+    ate_odom = trajectory_error(odometry_trajectory(ds), T_gt, align=True)
+    online.update(ate=ate, ate_odometry_only=ate_odom,
+                  track_ms=_percentiles(online["stage_ms"]["track"]),
+                  map_ms=_percentiles(online["stage_ms"]["map"]))
+    c = online["launches"]
+    log(f"  online: {online['frames']} frames, init burst {online['init_s']:.2f} s, run "
+        f"{online['run_s']:.2f} s; track {online['track_ms']['median']:.2f} ms median, "
+        f"{online['track_ms']['p90']:.2f} ms p90; map {online['map_ms']['median']:.2f} ms "
+        f"median, {online['map_ms']['p90']:.2f} ms p90 (CUDA-synchronized); launches {c}")
+    log(f"  ATE RMSE {100 * ate['ate_rmse']:.3f} cm, rotation RMSE "
+        f"{ate['rot_rmse_deg']:.4f} deg; odometry alone: ATE RMSE "
+        f"{100 * ate_odom['ate_rmse']:.3f} cm, rotation RMSE {ate_odom['rot_rmse_deg']:.4f} deg")
+    check(ate["ate_rmse"] < ate_odom["ate_rmse"],
+          f"ATE {ate['ate_rmse']:.4f} m not below the odometry's {ate_odom['ate_rmse']:.4f} m")
+    check(ate["ate_rmse"] < MAX_ATE_M, f"ATE {ate['ate_rmse']:.4f} m not below {MAX_ATE_M} m")
+    # Mapping (features and stability queried: 4 interp and 4 interp grad a
+    # step) and Adam tracking (2 and 2) take the table-gradient backward.
+    ms, ts = online["map_steps"], online["track_steps"]
+    want = {"interp": 4 * ms + 2 * ts, "interp_grad": 4 * ms + 2 * ts,
+            "decode": ms + ts, "interp_points_grad": 0, "fused": 0,
+            "interp_recompute_backward": 0}
+    for name, n in want.items():
+        check(c[name] == n, f"online run: {name} launched {c[name]} times, expected {n} "
+              f"({ms} mapping and {ts} tracking steps)")
+
+    c = lm["launches"]
+    log(f"  LM run: grid trained on keyframes 0-{LM_TRAIN_KFS - 1} ({lm['train_epochs']} "
+        f"epochs) in {lm['train_s']:.2f} s; keyframe {LM_KF} from {100 * lm['err_t0_m']:.2f} "
+        f"cm, {lm['err_r0_deg']:.3f} deg to {100 * lm['err_t1_m']:.3f} cm, "
+        f"{lm['err_r1_deg']:.4f} deg in {lm['iterations']} iterations, "
+        f"{lm['track_lm_ms']:.2f} ms (host sampling {lm['sample_ms']:.2f} ms); "
+        f"fov overlap {lm['fov_overlap']:.3f}; launches {c}")
+    check(lm["err_t1_m"] <= 0.5 * lm["err_t0_m"],
+          f"LM: translation error {lm['err_t1_m']:.4f} m, more than half of "
+          f"{lm['err_t0_m']:.4f} m")
+    check(lm["err_r1_deg"] < LM_MAX_ROT_DEG,
+          f"LM: rotation error {lm['err_r1_deg']:.4f} deg not under {LM_MAX_ROT_DEG:.2f}")
+    k = lm["iterations"]
+    want = {"interp": 2 * k, "interp_points_grad": 2 * k, "decode": k, "interp_grad": 0,
+            "fused": 0, "interp_recompute_backward": 0}
+    for name, n in want.items():
+        check(c[name] == n, f"LM run: {name} launched {c[name]} times in {k} iterations, "
+              f"expected {n}")
+
+    log("  the slam path's kernels against their plain versions:")
+    ds.select_keyframes([LM_KF])
+    b = ds.sample(np.random.default_rng(72))
+    R, t = tracker.grid.updated_kf_pose(LM_KF)
+    lm_batch = se3.transform_points_to(torch.as_tensor(b["coords_frame"], device=dev),
+                                       R, t).contiguous()
+    errs, times = _slam_kernel_checks(grid, ds, tracker.grid, lm_batch)
+    return dict(online=online, lm=lm, points_only=times), errs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
@@ -1202,18 +1591,24 @@ def main() -> int:
     mesh_report, mesh_errs = phase_mesh()
     errs.update(mesh_errs)
 
-    log("phase 5: report")
+    log("phase 5: online SLAM of one submap (demo/full_slam_scannet.py --synthetic)")
+    slam_report, slam_errs = phase_slam()
+    errs.update(slam_errs)
+
+    log("phase 6: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
                       "fused_kernel": times, "interp_kernels": interp_times,
                       "decode_kernel": decode_t,
                       "main_path": main_report, "main_path_fused": fused_report,
-                      "mesh_path": mesh_report}), flush=True)
+                      "mesh_path": mesh_report, "slam_path": slam_report}), flush=True)
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
-        default-decode run and phase 4's training and lattice."""
+        default-decode run, phase 4's training and lattice, and phase 5's
+        online run and LM run."""
         return (main_report["launches"][name] + mesh_report["train_launches"][name]
-                + mesh_report["lattice_launches"][name])
+                + mesh_report["lattice_launches"][name]
+                + slam_report["online"]["launches"][name] + slam_report["lm"]["launches"][name])
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1232,7 +1627,8 @@ def main() -> int:
     # coarse level's table-only call, which spreads its atomics over copies.
     backward = entry("grid_interp_backward", "miso_tpu_torch/csrc/grid_interp.cu",
                      "miso_tpu/ops/pallas_interp.py:268", launches("interp_grad"),
-                     worst("interp_grad_fine_F4", "interp_grad_coarse_F4", "mesh_grad_"),
+                     worst("interp_grad_fine_F4", "interp_grad_coarse_F4", "mesh_grad_",
+                           "slam_grad_"),
                      fine["grad"])
     backward.update(points_grad_ms=fine["grad_x"]["ms"],
                     points_grad_bound_ms=fine["grad_x"]["bound_ms"],
@@ -1251,7 +1647,8 @@ def main() -> int:
                  levels_staged=times["levels_staged"])
     forward = entry("grid_interp_forward", "miso_tpu_torch/csrc/grid_interp.cu",
                     "miso_tpu/ops/pallas_interp.py:196", launches("interp"),
-                    worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_"), fine["fwd"])
+                    worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_", "slam_interp_"),
+                    fine["fwd"])
     lattice = mesh_report["lattice_interp_fwd"]
     forward.update(path=fine["fwd_path"], device_ms=fine["fwd"]["device_ms"],
                    coarse_path=coarse["fwd_path"], coarse_ms=coarse["fwd"]["ms"],
@@ -1259,10 +1656,26 @@ def main() -> int:
                    coarse_bound_ms=coarse["fwd"]["bound_ms"],
                    lattice_device_ms={k: v["device_ms"] for k, v in lattice.items()},
                    lattice_paths={k: v["path"] for k, v in lattice.items()})
-    kernels = [fused, forward, backward,
+    # The points-only mode's entry: its call at the LM run's 4096 points on
+    # the fine level of the tracker's grid; beside it the coarse level's and
+    # the ScanNet levels' at 1e6 points.
+    po = slam_report["points_only"]
+    points_only = entry("grid_interp_points_backward", "miso_tpu_torch/csrc/grid_interp.cu",
+                        "miso_tpu/ops/pallas_interp.py:268", launches("interp_points_grad"),
+                        worst("points_only_"), po["lm_L1"])
+    points_only.update(mode="need_grid=False of grid_interpolate_grad_cuda",
+                       device_ms=po["lm_L1"]["device_ms"],
+                       table_and_points_ms=po["lm_L1"]["table_and_points_ms"],
+                       table_and_points_device_ms=po["lm_L1"]["table_and_points_device_ms"],
+                       coarse_ms=po["lm_L0"]["ms"], coarse_bound_ms=po["lm_L0"]["bound_ms"],
+                       scannet_1e6={k: {f: po[k][f] for f in (
+                           "ms", "device_ms", "table_and_points_ms",
+                           "table_and_points_device_ms", "plain_ms", "library_ms", "bound_ms")}
+                                    for k in ("scannet_fine", "scannet_coarse")})
+    kernels = [fused, forward, backward, points_only,
                entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
                      "miso_tpu/ops/pallas_decode.py:107", launches("decode"),
-                     worst("decode_scannet", "mesh_decode_"), decode_t)]
+                     worst("decode_scannet", "mesh_decode_", "slam_decode_"), decode_t)]
     tpu_kernels = [
         {"replaces": "miso_tpu/ops/pallas_decode.py:186", "name": "_fused_kernel",
          "status": "ported and checked", "port": "fused_interp_decode"},
@@ -1271,7 +1684,8 @@ def main() -> int:
         {"replaces": "miso_tpu/ops/pallas_interp.py:196", "name": "_interp_kernel",
          "status": "ported and checked", "port": "grid_interp_forward"},
         {"replaces": "miso_tpu/ops/pallas_interp.py:268", "name": "_interp_grad_kernel",
-         "status": "ported and checked", "port": "grid_interp_backward"},
+         "status": "ported and checked",
+         "port": "grid_interp_backward, grid_interp_points_backward"},
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")

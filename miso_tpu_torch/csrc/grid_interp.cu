@@ -60,6 +60,12 @@
 // sorting, barriers and index-driven point access than the atomics they
 // save, at both ScanNet levels.
 //
+// Points-only backward (LM tracking: the SDF's spatial gradient with the grid
+// frozen): one thread per point gathers its 8 rows as the forward does and
+// writes d out / d x alone.  No table gradient is allocated or zeroed, no
+// copies, no atomics; per point it reads x and g (12 + 4F B) and its rows,
+// and writes 12 B.
+//
 // What bounds the kernels on an H100: bytes.  Per point the forward reads x
 // (12 B) and writes F floats; the backward reads x and g (12 + 4F B), writes
 // the table once and, with the points' gradient, reads it once and writes
@@ -312,6 +318,18 @@ grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
   if (a.gx != nullptr) mtt_points_grad(a, ax, valid, lin, gp, a.gx + 3 * p);
 }
 
+__global__ void __launch_bounds__(MTT_INTERP_THREADS)
+grid_interp_points_grad_kernel(const __grid_constant__ MttInterpArgs a) {
+  const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
+  if (p >= a.n) return;
+  MttAxes ax;
+  mtt_point_axes(a, p, ax);
+  int lin[8];
+  float w[8];
+  const unsigned valid = mtt_corners(ax, a.dims, lin, w);
+  mtt_points_grad(a, ax, valid, lin, a.g + p * a.fdim, a.gx + 3 * p);
+}
+
 // The gradient: the sum of the copies, element by element (float4 when the
 // table's length allows).
 __global__ void __launch_bounds__(MTT_SUM_THREADS)
@@ -445,6 +463,23 @@ int mtt_grid_interp_backward(const MttInterpArgs* a, const MttGradPlan* plan, in
   if (bad != 0) return bad;
   MTT_TRY(cudaSetDevice(device));
   return mtt_grad_launch(*a, *plan, (cudaStream_t)stream);
+}
+
+// The points' gradient alone (a->gx), the table's not asked for: a->out must
+// be null.  One kernel, no memset.
+int mtt_grid_interp_points_grad(const MttInterpArgs* a, int device, void* stream) {
+  const int bad = mtt_interp_check(*a);
+  if (bad != 0) return bad;
+  if (a->out != nullptr || (a->n > 0 && (a->g == nullptr || a->gx == nullptr))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a->n == 0) return 0;
+  MTT_TRY(cudaSetDevice(device));
+  const long long blocks = (a->n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  grid_interp_points_grad_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0,
+                                   (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

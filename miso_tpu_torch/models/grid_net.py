@@ -17,7 +17,11 @@ default) interpolates each level and then decodes, ``"pallas"`` runs the
 fused kernel (``ops/fused_decode.py``).  On the card the ``"xla"`` path, and
 ``query_feature`` and ``query_stability``, go through the interp kernels
 (``ops/tiled_interp.py``) and the decode kernel (``ops/fused_decode.py::
-mlp_decode``); on the CPU through their plain versions.  VM grids wait for a
+mlp_decode``); on the CPU through their plain versions.  ``frozen=True``
+queries with every table and the decoder detached, so that a backward asks
+for no parameter's gradient (LM tracking wants the points' alone).  A
+decoder's ``pretrained_model`` (an ``.npz`` of either package's
+``save_pytree``) is loaded by :func:`create_grid_net`.  VM grids wait for a
 later slice.
 """
 from __future__ import annotations
@@ -83,16 +87,30 @@ class GridNet(nn.Module):
     @property
     def decoder_params(self):
         """The decoder as ((W, b), ...), detached when the decoder is fixed."""
+        return self._decoder(False)
+
+    def _decoder(self, frozen: bool):
         if self.decoder is None:
             return None
-        ts = [t.detach() if self.decoder_fixed else t for t in self.decoder]
+        ts = [t.detach() if self.decoder_fixed or frozen else t for t in self.decoder]
         return tuple(zip(ts[0::2], ts[1::2]))
 
+    def tree_fields(self):
+        """(key, value) of the JAX GridNet's leaves, in its key-path spelling
+        (``train/checkpoint.py`` writes and reads them)."""
+        return [(".features", list(self.features)), (".stability", list(self.stability)),
+                (".decoder", None if self.decoder is None else
+                 [[self.decoder[i], self.decoder[i + 1]]
+                  for i in range(0, len(self.decoder), 2)]),
+                (".rot_corr", self.rot_corr), (".trans_corr", self.trans_corr),
+                (".Rwk", self.Rwk), (".twk", self.twk), (".bound", self.bound),
+                (".ignore_level", self.ignore_level), (".anchor_kf", self.anchor_kf)]
+
     # --- queries ----------------------------------------------------------
-    def query_feature(self, x: torch.Tensor) -> torch.Tensor:
+    def query_feature(self, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
         """Multi-level interp and concat (regular grids)."""
-        return interp.multi_level_interpolate(list(self.features), x, self.bound,
-                                              self.ignore_level,
+        feats = [f.detach() if frozen else f for f in self.features]
+        return interp.multi_level_interpolate(feats, x, self.bound, self.ignore_level,
                                               interpolate=grid_interpolate_dispatch)
 
     def query_stability(self, x: torch.Tensor) -> torch.Tensor:
@@ -100,13 +118,14 @@ class GridNet(nn.Module):
         return interp.multi_level_interpolate(list(self.stability), x, self.bound,
                                               interpolate=grid_interpolate_dispatch)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        decoder = self.decoder_params
+    def forward(self, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
+        decoder = self._decoder(frozen)
         if (self.decode_impl == "pallas" and decoder is not None
                 and self.pos_invariant):
-            return fused_interp_decode(list(self.features), x, self.bound, decoder,
+            feats = [f.detach() if frozen else f for f in self.features]
+            return fused_interp_decode(feats, x, self.bound, decoder,
                                        ignore_level=self.ignore_level)
-        return interp.grid_decode(self.query_feature(x), x, decoder,
+        return interp.grid_decode(self.query_feature(x, frozen), x, decoder,
                                   self.pos_invariant, decode=mlp_decode)
 
     # --- poses ------------------------------------------------------------
@@ -122,6 +141,15 @@ class GridNet(nn.Module):
             dt = dt.detach() * m + dt * (1.0 - m)
         return se3.apply_pose_correction(self.Rwk, self.twk, dr, dt)
 
+    @torch.no_grad()
+    def updated_kf_pose(self, kf_id: int):
+        """The corrected pose (R (3, 3), t (3,)) of local keyframe ``kf_id``."""
+        R, t = self.updated_kf_poses()
+        return R[kf_id], t[kf_id]
+
+    def initial_kf_pose(self, kf_id: int):
+        return self.Rwk[kf_id], self.twk[kf_id]
+
     def pose_key_to_id(self, kf_key: str) -> int:
         """'KF{global_id}' -> local pose index."""
         if not kf_key.startswith("KF"):
@@ -136,6 +164,23 @@ class GridNet(nn.Module):
         self.twk[kf_id] = torch.as_tensor(t, dtype=self.twk.dtype).reshape(3)
         self.rot_corr[kf_id] = 0.0
         self.trans_corr[kf_id] = 0.0
+        return self
+
+    @torch.no_grad()
+    def zero_features(self) -> "GridNet":
+        """Zero every feature table, in place; returns self."""
+        for f in self.features:
+            f.zero_()
+        return self
+
+    @torch.no_grad()
+    def randn_features(self, generator: torch.Generator, std: float) -> "GridNet":
+        """Redraw every feature table from N(0, std^2) with ``generator`` (one
+        draw per level, in level order, on the generator's device), in place;
+        returns self."""
+        for f in self.features:
+            f.copy_(torch.randn(f.shape, generator=generator, dtype=torch.float32,
+                                device=generator.device) * std)
         return self
 
     @torch.no_grad()
@@ -216,13 +261,14 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
 
     decoder = None
     if dcfg.get("type", "none") == "mlp":
-        if dcfg.get("pretrained_model"):
-            raise NotImplementedError("pretrained decoders load in a later slice")
         n_levels = len(settings["cell_sizes"])
         in_dim = n_levels * fdim + (0 if settings["pos_invariant"] else 3)
         decoder = mlp_init(in_dim, int(dcfg["out_dim"]), int(dcfg["hidden_dim"]),
                            int(dcfg["hidden_layers"]), bias=True,
                            generator=generator, dtype=dtype, device=device)
+        if dcfg.get("pretrained_model"):
+            from miso_tpu_torch.train.checkpoint import load_pytree
+            decoder = load_pytree(dcfg["pretrained_model"], like=decoder)
 
     K = int(num_poses if num_poses is not None else pcfg.get("num_poses", 1))
     opt_pose = bool(optimize_pose if optimize_pose is not None

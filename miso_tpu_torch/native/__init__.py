@@ -12,9 +12,9 @@ toolkit on the H100 machine has no libgomp, and the OpenMP loops (one per
 query point, no reductions) give the same bits on one thread.  Entry points
 take contiguous float32 / int32 numpy arrays.
 
-Ported so far, what the synthetic mesh path needs: ``marching_cubes`` and
-``TriangleMesh`` (``signed_distance``, ``closest_points``,
-``sample_surface``).  Ray casting waits for the posed-camera datasets.
+Entry points: ``marching_cubes`` and ``TriangleMesh`` (``signed_distance``,
+``unsigned_distance``, ``closest_points``, ``raycast``, ``sample_surface``,
+``face_normals``, ``area``).
 """
 from __future__ import annotations
 
@@ -98,7 +98,9 @@ def get_lib() -> ctypes.CDLL:
     lib.mn_mesh_build.restype = ctypes.c_void_p
     lib.mn_mesh_free.argtypes = [ctypes.c_void_p]
     lib.mn_signed_distance.argtypes = [ctypes.c_void_p, c_fp, ctypes.c_int, c_fp]
+    lib.mn_unsigned_distance.argtypes = [ctypes.c_void_p, c_fp, ctypes.c_int, c_fp]
     lib.mn_closest_points.argtypes = [ctypes.c_void_p, c_fp, ctypes.c_int, c_fp, c_fp]
+    lib.mn_raycast.argtypes = [ctypes.c_void_p, c_fp, c_fp, ctypes.c_int, c_fp, c_ip]
     lib.mn_sample_surface.argtypes = [ctypes.c_void_p, ctypes.c_int,
                                       ctypes.c_uint64, c_fp, c_fp]
     return lib
@@ -164,6 +166,12 @@ class TriangleMesh:
         self._lib.mn_signed_distance(self._handle, _fp(pts), len(pts), _fp(out))
         return out
 
+    def unsigned_distance(self, points: np.ndarray) -> np.ndarray:
+        pts = np.ascontiguousarray(points, dtype=np.float32)
+        out = np.empty((len(pts),), np.float32)
+        self._lib.mn_unsigned_distance(self._handle, _fp(pts), len(pts), _fp(out))
+        return out
+
     def closest_points(self, points: np.ndarray):
         """(closest surface points (N, 3), distances (N,))."""
         pts = np.ascontiguousarray(points, dtype=np.float32)
@@ -173,6 +181,17 @@ class TriangleMesh:
                                     _fp(out_d))
         return out_p, out_d
 
+    def raycast(self, origins: np.ndarray, directions: np.ndarray):
+        """First hits: (t (N,), triangle (N,)); t = -1 where the ray misses."""
+        o = np.ascontiguousarray(origins, dtype=np.float32)
+        d = np.ascontiguousarray(directions, dtype=np.float32)
+        if o.shape != d.shape or o.ndim != 2 or o.shape[1] != 3:
+            raise ValueError(f"origins {o.shape} and directions {d.shape} must both be (N, 3)")
+        t = np.empty((len(o),), np.float32)
+        tri = np.empty((len(o),), np.int32)
+        self._lib.mn_raycast(self._handle, _fp(o), _fp(d), len(o), _fp(t), _ip(tri))
+        return t, tri
+
     def sample_surface(self, n: int, seed: int = 0, return_normals: bool = False):
         """n area-weighted surface samples (and their face normals)."""
         pts = np.empty((n, 3), np.float32)
@@ -181,3 +200,16 @@ class TriangleMesh:
         if return_normals:
             return pts, nrm
         return pts
+
+    def _cross(self) -> np.ndarray:
+        v, t = self.vertices, self.triangles
+        return np.cross(v[t[:, 1]] - v[t[:, 0]], v[t[:, 2]] - v[t[:, 0]])
+
+    @property
+    def face_normals(self) -> np.ndarray:
+        n = self._cross()
+        return n / (np.linalg.norm(n, axis=1, keepdims=True) + 1e-20)
+
+    @property
+    def area(self) -> float:
+        return float(0.5 * np.linalg.norm(self._cross(), axis=1).sum())

@@ -126,3 +126,65 @@ def coords_in_bound(coords, bound):
 
 def identity_rotations(n, dtype=torch.float32, device="cuda"):
     return torch.eye(3, dtype=dtype, device=device).expand(n, 3, 3).clone()
+
+
+def so3_relative_angle(R1: torch.Tensor, R2: torch.Tensor) -> torch.Tensor:
+    """Angle (rad) between batches of rotations."""
+    R12 = _mm(R1.transpose(-1, -2), R2)
+    trace = R12[..., 0, 0] + R12[..., 1, 1] + R12[..., 2, 2]
+    return torch.arccos(torch.clamp((trace - 1.0) * 0.5, -1.0, 1.0))
+
+
+def get_pose_correction(R, t, R_new, t_new):
+    """Inverse of :func:`apply_pose_correction`: (dr, dt) with
+    R_new = R @ Exp(dr), t_new = t + dt."""
+    return so3_log(_mm(R.transpose(-1, -2), R_new)), t_new - t
+
+
+def transform_poses_to(R_frames, t_frames, R, t):
+    """Compose world<-frames from world<-src (R (3, 3), t (3,)) and
+    src<-frames (R_frames (..., 3, 3), t_frames (..., 3))."""
+    R_out = _mm(R.expand(R_frames.shape), R_frames)
+    t_out = (R * t_frames.unsqueeze(-2)).sum(-1) + t
+    return R_out, t_out
+
+
+def transform_poses_from(R_frames, t_frames, R, t):
+    """src<-frames from world<-frames and world<-src."""
+    R_inv = R.T
+    t_inv = -(R_inv * t).sum(-1)
+    return transform_poses_to(R_frames, t_frames, R_inv, t_inv)
+
+
+def pose_matrix(R, t):
+    """(3, 3), (3,) -> 4x4 homogeneous matrix."""
+    T = torch.eye(4, dtype=R.dtype, device=R.device)
+    T[:3, :3] = R
+    T[:3, 3] = t.reshape(3)
+    return T
+
+
+def rotation_rmse_deg(R1, R2):
+    """RMSE of the relative angles, in degrees."""
+    ang = so3_relative_angle(R1, R2)
+    return torch.rad2deg(torch.sqrt(torch.mean(ang ** 2)))
+
+
+def rotation_mean_error_deg(R1, R2):
+    return torch.rad2deg(torch.mean(torch.abs(so3_relative_angle(R1, R2))))
+
+
+def translation_rmse(t1, t2):
+    d = torch.linalg.vector_norm(t1.reshape(-1, 3) - t2.reshape(-1, 3), dim=-1)
+    return torch.sqrt(torch.mean(d ** 2))
+
+
+def translation_mean_error(t1, t2):
+    d = torch.linalg.vector_norm(t1.reshape(-1, 3) - t2.reshape(-1, 3), dim=-1)
+    return torch.mean(d)
+
+
+def aabb(points: torch.Tensor, buffer: float = 0.0) -> torch.Tensor:
+    """Axis-aligned bounding box (d, 2) of (N, d) points."""
+    return torch.stack([points.min(dim=0).values - buffer,
+                        points.max(dim=0).values + buffer], dim=1)

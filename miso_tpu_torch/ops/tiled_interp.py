@@ -11,10 +11,12 @@ this module computes, in the caller's point order:
   * :func:`grid_interpolate_cuda` and :func:`grid_interpolate_grad_cuda`,
     the wrappers of the CUDA kernels in ``csrc/grid_interp.cu`` (forward;
     backward: the grid's gradient by float4 atomics, spread over L2-resident
-    copies of a small table, plus, when asked, the points' gradient).  They
-    validate their inputs, launch on PyTorch's current stream, count their
-    calls in ``.launches`` and raise on what the kernels do not take.  They
-    never fall back.
+    copies of a small table, plus, when asked, the points' gradient; or, with
+    ``need_grid=False``, the points' gradient alone, with no table gradient,
+    copies or atomics).  They validate their inputs, launch on PyTorch's
+    current stream, count their calls (``.launches``; the points-only mode in
+    ``grid_interpolate_grad_cuda.points_launches``) and raise on what the
+    kernels do not take.  They never fall back.
   * :func:`interp_grad_copies`, how many copies of the table the backward
     spreads its atomics over; :func:`staged_tables`, which tables a kernel
     copies to each block's shared memory before it gathers from them (the
@@ -31,7 +33,9 @@ this module computes, in the caller's point order:
     failure:
 
       - first order (``torch.is_grad_enabled()`` false in the backward: a
-        plain ``backward`` or ``autograd.grad``) launches the grad kernel;
+        plain ``backward`` or ``autograd.grad``) launches the grad kernel, in
+        its points-only mode when the grid needs no gradient (a frozen
+        grid, as LM tracking queries it);
       - under ``create_graph=True`` (the autograd eikonal,
         ``losses/common.py::eikonal_loss_at``) the gradient must itself be
         differentiable, so it is recomputed through the plain, differentiable
@@ -160,7 +164,10 @@ def _library():
     lib.mtt_grid_interp_backward.argtypes = [ctypes.POINTER(_InterpArgs),
                                              ctypes.POINTER(_GradPlanArgs), ctypes.c_int,
                                              ctypes.c_void_p]
-    for fn in (lib.mtt_grid_interp_forward, lib.mtt_grid_interp_backward):
+    lib.mtt_grid_interp_points_grad.argtypes = [ctypes.POINTER(_InterpArgs), ctypes.c_int,
+                                                ctypes.c_void_p]
+    for fn in (lib.mtt_grid_interp_forward, lib.mtt_grid_interp_backward,
+               lib.mtt_grid_interp_points_grad):
         fn.restype = ctypes.c_int
     return lib
 
@@ -197,8 +204,8 @@ def _check(grid, x, bound, size, g=None):
 
 def _pack(grid, x, bound, size, out, g=None, gx=None):
     a = _InterpArgs()
-    a.x, a.bound, a.grid, a.out = (x.data_ptr(), bound.data_ptr(), grid.data_ptr(),
-                                   out.data_ptr())
+    a.x, a.bound, a.grid = x.data_ptr(), bound.data_ptr(), grid.data_ptr()
+    a.out = None if out is None else out.data_ptr()
     a.size = None if size is None else size.data_ptr()
     a.g = None if g is None else g.data_ptr()
     a.gx = None if gx is None else gx.data_ptr()
@@ -251,16 +258,27 @@ grid_interpolate_cuda.launches = 0
 def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
                                bound: torch.Tensor, g: torch.Tensor,
                                size: Optional[torch.Tensor] = None,
-                               need_x: bool = True):
+                               need_x: bool = True, need_grid: bool = True):
     """Launch the backward kernel for cotangent ``g`` (N, F), its atomics
     spread over the copies of :func:`interp_grad_copies` (one count in
     ``.launches`` per call).
 
     Returns (d_grid (X, Y, Z, F), d_x (N, 3) or None when ``need_x`` is
     false).  d_grid is scattered with atomics, so its float32 sums run in an
-    order that varies from run to run.
+    order that varies from run to run.  With ``need_grid=False`` the
+    points-only mode computes d_x alone, allocates no table gradient and no
+    copies and makes no atomic adds (one count in ``.points_launches``), and
+    returns (None, d_x).
     """
     _check(grid, x, bound, size, g)
+    if not need_grid:
+        if not need_x:
+            raise ValueError("neither the grid's nor the points' gradient asked for")
+        d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+        _launch("mtt_grid_interp_points_grad", x.device,
+                _pack(grid, x, bound, size, None, g, d_x))
+        grid_interpolate_grad_cuda.points_launches += 1
+        return None, d_x
     n_copies = interp_grad_copies(grid.shape[:3], grid.shape[-1], x.shape[0])
     d_grid = torch.empty_like(grid)
     d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
@@ -278,6 +296,7 @@ def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
 
 
 grid_interpolate_grad_cuda.launches = 0
+grid_interpolate_grad_cuda.points_launches = 0
 
 
 def grid_interpolate_plain(grid, x, bound, size=None):
@@ -318,17 +337,21 @@ def corner_weight_derivatives(x, bound, spatial: Sequence[int], size=None):
     return torch.stack(out)
 
 
-def grid_interpolate_grad_plain(grid, x, bound, g, size=None, need_x=True):
+def grid_interpolate_grad_plain(grid, x, bound, g, size=None, need_x=True,
+                                need_grid=True):
     """The backward kernel's plain version: the grid's gradient by an
-    ``index_add_`` scatter of the corner-weighted cotangents, and the points'
-    gradient from the weights' derivatives (:func:`corner_weight_derivatives`)."""
+    ``index_add_`` scatter of the corner-weighted cotangents (skipped, and
+    None, when ``need_grid`` is false), and the points' gradient from the
+    weights' derivatives (:func:`corner_weight_derivatives`)."""
     spatial = tuple(grid.shape[:3])
     F = grid.shape[-1]
     lin, w = interp.corner_indices_and_weights(x, bound, spatial, size)
-    rows = (w.unsqueeze(-1) * g.unsqueeze(0)).reshape(-1, F)
-    d_grid = torch.zeros((grid[..., 0].numel(), F), dtype=g.dtype, device=g.device)
-    d_grid.index_add_(0, lin.reshape(-1), rows)
-    d_grid = d_grid.reshape(grid.shape)
+    d_grid = None
+    if need_grid:
+        rows = (w.unsqueeze(-1) * g.unsqueeze(0)).reshape(-1, F)
+        d_grid = torch.zeros((grid[..., 0].numel(), F), dtype=g.dtype, device=g.device)
+        d_grid.index_add_(0, lin.reshape(-1), rows)
+        d_grid = d_grid.reshape(grid.shape)
     if not need_x:
         return d_grid, None
     corners = torch.index_select(grid.reshape(-1, F), 0, lin.reshape(-1))
@@ -364,11 +387,13 @@ class _GridInterp(torch.autograd.Function):
             d_grid = got.pop(0) if need_grid else None
             d_x = got.pop(0) if need_x else None
         else:
-            d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound,
-                                                     grad_out.contiguous(), size,
-                                                     need_x=need_x)
-            if not need_grid:
-                d_grid = None
+            g = grad_out.contiguous()
+            if need_grid:
+                d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, g, size,
+                                                         need_x=need_x)
+            else:
+                d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, g, size,
+                                                         need_grid=False)
         return d_grid, d_x, None, None
 
 

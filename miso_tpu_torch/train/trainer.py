@@ -1,21 +1,26 @@
 """The train step and the training loops (port of
-``miso_tpu/train/trainer.py``: ``make_train_step``, ``Trainer``,
-``GridTrainer``).
+``miso_tpu/train/trainer.py``: ``make_train_step``, ``make_train_burst_pool``,
+``level_schedule``, ``Trainer``, ``GridTrainer``).
 
 One step: loss dict, total, gradients wrt every named parameter, the NaN
 guard, and the masked optimizer update.  Training phases (per-level
 coordinate descent, joint finetune, pose locking) change only the mask.
 
-The loops are plain Python, one freshly sampled batch per epoch.  The JAX
-package's scanned and pool bursts (``make_train_scan*``,
-``_train_scan_chunk``, ``MISO_DEBUG_BURST``) amortise TPU dispatch and have
-no counterpart here; checkpoints and TensorBoard logging wait for a later
-slice.
+The loops are plain Python, one freshly sampled batch per epoch.  A
+checkpoint holds the whole train state (model, optimizer moments, the loss
+generator, the numpy sampler, epoch and level bookkeeping), so a run resumed
+from one is bit-identical to an uninterrupted run.  The SLAM mapper's burst
+(:func:`make_train_burst_pool`) draws its batches on the device from a
+resident pool.  The JAX package's scan chunking and step caches
+(``make_train_scan*``, ``_train_scan_chunk``, ``MISO_DEBUG_BURST``) amortise
+TPU dispatch and have no counterpart here; TensorBoard logging waits for a
+later slice.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +67,79 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     return step
 
 
+def pool_batch_rows(u: torch.Tensor, sel: torch.Tensor, n_rows_sel: torch.Tensor,
+                    n_max: int) -> torch.Tensor:
+    """Flat pool rows of one burst step: uniforms u (K, B) -> row
+    ``floor(u * n_rows[sel])`` of each selected keyframe's pool, as
+    (K * B,) indices into the pool flattened over (keyframe, row).  The
+    floor is kept below n_rows, where a uniform just under 1 rounds up."""
+    idx = torch.floor(u * n_rows_sel[:, None].to(u.dtype)).to(torch.int64)
+    idx = torch.minimum(idx, (n_rows_sel[:, None] - 1).to(torch.int64))
+    return (sel[:, None].to(torch.int64) * n_max + idx).reshape(-1)
+
+
+def make_train_burst_pool(loss_fn: Callable, optimizer: str = "adam"):
+    """A whole training burst whose batches are drawn on the device from a
+    resident pool (the SLAM mapper's per-frame burst).
+
+    burst(model, pool, sel, n_rows, generator, masks, lr, B) ->
+    (model, total losses (steps,)): a fresh masked-optimizer state, then one
+    step per entry of ``masks`` (a list of mask dicts, one a step: a
+    coarse-to-fine level schedule).  Each step draws u (K, B) from
+    ``generator`` on the pool's device and takes rows
+    :func:`pool_batch_rows` of every pool field (``pool``: name ->
+    (num_kfs, n_max, ...)), with ``sample_frame_ids`` = the selected
+    keyframe of each row and unit ``weights``.  Nothing reads the device
+    from the host.
+    """
+    step = make_train_step(loss_fn, optimizer)
+
+    def burst(model, pool, sel, n_rows, generator, masks: Sequence, lr, B: int):
+        K = sel.shape[0]
+        n_max = next(iter(pool.values())).shape[1]
+        flat = {name: a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:])
+                for name, a in pool.items()}
+        dev = sel.device
+        ids = sel.to(torch.int32).repeat_interleave(B)
+        weights = torch.ones((K * B, 1), dtype=torch.float32, device=dev)
+        n_rows_sel = n_rows[sel.to(torch.int64)]
+        opt_state = (masked_adam_init(model) if optimizer == "adam"
+                     else masked_sgd_init(model))
+        totals = []
+        for mask in masks:
+            u = torch.rand((K, B), generator=generator, device=dev)
+            rows = pool_batch_rows(u, sel, n_rows_sel, n_max)
+            batch = {name: a.index_select(0, rows) for name, a in flat.items()}
+            batch["sample_frame_ids"] = ids
+            batch["weights"] = weights
+            model, opt_state, tl, _ = step(model, opt_state, batch, generator, mask, lr)
+            totals.append(tl)
+        return model, torch.stack(totals)
+
+    return burst
+
+
+def level_schedule(iterations: int, max_epochs_in_level: int, num_levels: int,
+                   mode: str = "coordinate+joint") -> List[int]:
+    """The level of each epoch's mask as GridTrainer.pre_epoch picks it with
+    relchange_tol == 0: level l for ``max_epochs_in_level`` epochs, then the
+    next, then the finest ('coordinate') or the joint phase
+    ('coordinate+joint'); ``num_levels`` stands for the joint mask."""
+    if mode == "joint":
+        return [num_levels] * iterations
+    out, active, in_level = [], 0, 0
+    for _ in range(iterations):
+        if in_level >= max_epochs_in_level and active < num_levels:
+            active += 1
+            in_level = 0
+        in_level += 1
+        if active >= num_levels:
+            out.append(num_levels - 1 if mode == "coordinate" else num_levels)
+        else:
+            out.append(active)
+    return out
+
+
 def _device_of(model) -> torch.device:
     return next(iter(named_tensors(model).values())).device
 
@@ -81,8 +159,6 @@ class Trainer:
 
     def __init__(self, cfg: Dict, model, loss_fn, dataset, val_dataset=None,
                  mask=None, seed: int = 0):
-        if int(cfg.get("ckpt_every", -1)) > 0:
-            raise NotImplementedError("checkpoints are ported in a later slice")
         self.cfg = cfg
         self.model = model
         self.loss_fn = loss_fn
@@ -99,6 +175,8 @@ class Trainer:
         self.rng = np.random.default_rng(seed)
         self.key = torch.Generator(device=self.device).manual_seed(seed)
         self.eval_every = cfg.get("eval_every", -1)
+        self.ckpt_every = cfg.get("ckpt_every", -1)
+        self.log_dir = cfg.get("log_dir", None)
         self.train_dict: Dict[str, List] = {"epochs": [], "elapsed_time": [],
                                             "epoch_time": [], "total_loss": []}
         self.val_dict: Dict[str, List] = {"epochs": [], "total_loss": []}
@@ -117,7 +195,8 @@ class Trainer:
             self.run_eval(epoch)
 
     def post_epoch(self, epoch: int):
-        pass
+        if self.ckpt_every > 0 and epoch % self.ckpt_every == 0:
+            self.save_model(epoch, f"ckpt_{epoch}")
 
     def current_mask(self):
         return self.mask
@@ -131,6 +210,8 @@ class Trainer:
             self.post_epoch(epoch)
         if self.eval_every > 0:
             self.run_eval(epochs)
+        if self.ckpt_every > 0:
+            self.save_model(epochs, "final")
         return self.model
 
     def _to_device(self, batch):
@@ -201,6 +282,57 @@ class Trainer:
         self._params_prev = params
         return self.relchange
 
+    def save_model(self, epoch: int, name: str):
+        """The train state at ``<log_dir>/ckpt/<name>.npz`` (nothing without a
+        log_dir)."""
+        if self.log_dir is None:
+            return
+        self.save_checkpoint(os.path.join(self.log_dir, "ckpt", f"{name}.npz"), epoch)
+
+    # -- exact resume --------------------------------------------------------
+    def _aux_state(self) -> Dict:
+        return {}
+
+    def _restore_aux_state(self, st: Dict):
+        pass
+
+    def save_checkpoint(self, path: str, epoch: int = 0):
+        """The whole train state: model, optimizer state, the loss generator,
+        the previous parameters of the convergence check, and in the meta
+        entry the epoch, the numpy sampler's state and the level state."""
+        from miso_tpu_torch.train.checkpoint import save_pytree
+
+        tree = {"model": self.model, "opt_state": self.opt_state, "key": self.key}
+        if self._params_prev is not None:
+            tree["params_prev"] = self._params_prev
+        meta = {"epoch": int(epoch), "rng_state": self.rng.bit_generator.state,
+                "relchange": float(self.relchange),
+                "has_params_prev": self._params_prev is not None,
+                "total_epoch_time": float(self.total_epoch_time),
+                "optimizer": self.optimizer_name, "aux": self._aux_state()}
+        save_pytree(path, tree, meta=meta)
+
+    def load_checkpoint(self, path: str) -> int:
+        """Restore the train state of :meth:`save_checkpoint` (the model in
+        place); returns the epoch to resume from, also ``self.start_epoch``."""
+        from miso_tpu_torch.train.checkpoint import load_meta, load_pytree
+
+        meta = load_meta(path) or {}
+        like = {"model": self.model, "opt_state": self.opt_state, "key": self.key}
+        if meta.get("has_params_prev"):
+            like["params_prev"] = {k: v.detach() for k, v in
+                                   masked_select_tree(self.model, self.mask).items()}
+        tree = load_pytree(path, like)
+        self.opt_state = tree["opt_state"]
+        self._params_prev = tree.get("params_prev")
+        if "rng_state" in meta:
+            self.rng.bit_generator.state = meta["rng_state"]
+        self.relchange = float(meta.get("relchange", np.inf))
+        self.total_epoch_time = float(meta.get("total_epoch_time", 0.0))
+        self._restore_aux_state(meta.get("aux") or {})
+        self.start_epoch = int(meta.get("epoch", 0))
+        return self.start_epoch
+
 
 class GridTrainer(Trainer):
     """Coarse-to-fine trainer.
@@ -231,6 +363,27 @@ class GridTrainer(Trainer):
         self.relchange = np.inf
         self.epochs_in_level = 0
 
+    def _level_mask(self):
+        if self.active_level >= self.num_levels:
+            # 'coordinate' keeps training the finest level; otherwise the
+            # joint finetune over all levels.
+            level = (self.num_levels - 1 if self.mode == "coordinate"
+                     else self.num_levels)
+        else:
+            level = self.active_level
+        return self.mask_for_level(self.model, level)
+
+    def _aux_state(self) -> Dict:
+        return {"active_level": int(self.active_level),
+                "epochs_in_level": int(self.epochs_in_level)}
+
+    def _restore_aux_state(self, st: Dict):
+        if not st:
+            return
+        self.active_level = int(st["active_level"])
+        self.epochs_in_level = int(st["epochs_in_level"])
+        self.mask = self._level_mask()
+
     def pre_epoch(self, epoch: int):
         super().pre_epoch(epoch)
         if self.relchange_tol > 0:
@@ -240,13 +393,6 @@ class GridTrainer(Trainer):
             if self.active_level < self.num_levels:
                 self.train_dict[f"level{self.active_level}_last_epoch"] = epoch
                 self.active_level += 1
-                if self.active_level >= self.num_levels:
-                    # 'coordinate' keeps training the finest level; otherwise
-                    # the joint finetune over all levels.
-                    level = (self.num_levels - 1 if self.mode == "coordinate"
-                             else self.num_levels)
-                else:
-                    level = self.active_level
-                self.mask = self.mask_for_level(self.model, level)
+                self.mask = self._level_mask()
                 self.reset_convergence_check()
         self.epochs_in_level += 1

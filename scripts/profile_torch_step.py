@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's steps spend their device time, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [mapping|mesh|all] [--steps N] [--root DIR]
+    python3 scripts/profile_torch_step.py [mapping|mesh|slam|all] [--steps N] [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
 step (ScanNet widths, 1e6-point batches, masked Adam), first with
@@ -17,6 +17,12 @@ the same steps in the same call.
 points per batch, GridTrainer with tsdf_loss_3d and the autograd eikonal,
 default decode): 20 warm-up epochs, 20 unprofiled, 20 profiled; then the
 192^3 lattice of extract_fields once unprofiled and once profiled.
+
+``slam``: chip_smoke.py's online SLAM of one submap (phase 5's sequence,
+config and pretrained decoder): after the init burst and 2 warm-up frames, N
+whole frames (odometry, Adam tracking, mapping burst), then the tracking of
+one frame and one mapping burst apart, N times each, then LM tracking of one
+frame with configs/lidar/ncd_quad.yaml's settings, N times.
 
 For each window it prints the card, the wall time per step (host clock,
 synchronised) unprofiled and profiled, the device time per step summed over
@@ -138,12 +144,68 @@ def profile_mesh(chip_smoke):
     breakdown("extract_fields, 192^3 lattice (one call per step)", lattice, 1)
 
 
+def profile_slam(chip_smoke, steps):
+    import tempfile
+
+    from miso_tpu_torch.config import load_config
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.slam.submap_slam import SubmapSlam, replay_window
+    from miso_tpu_torch.slam.tracker import Tracker
+    from miso_tpu_torch.train.checkpoint import save_pytree
+
+    dev = torch.device("cuda")
+    mesh, ds = chip_smoke.slam_sequence()
+    cfg = chip_smoke.slam_config()
+    cfg["system"]["profile"] = False
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "decoder.npz")
+        save_pytree(path, chip_smoke.pretrain_decoder(mesh, cfg["model"], dev))
+        cfg["model"]["decoder"].update({"fix": True, "pretrained_model": path})
+        grid = create_grid_net(cfg["model"], bound=cfg["system"]["submap_local_bound"],
+                               num_poses=cfg["system"]["submap_size"],
+                               generator=torch.Generator().manual_seed(0), device=dev)
+    if 2 + 2 * steps >= ds.num_kfs:
+        raise ValueError(f"--steps {steps}: the sequence has {ds.num_kfs} frames")
+    slam = SubmapSlam(grid, ds, ds, cfg, *ds.noisy_kf_pose_in_world(0))
+
+    def frames(n):
+        for _ in range(n):
+            slam.step()
+
+    def track(n):
+        for _ in range(n):
+            slam.tracker.track(slam.curr_kf)
+
+    def mapping(n):
+        kfs = replay_window(0, slam.curr_kf, slam.max_replay_frames, slam.max_replay_freq)
+        for _ in range(n):
+            slam.mapper.mapping(kfs, iterations=slam.map_iters,
+                                level_iterations=slam.map_level_iters)
+
+    lidar = load_config(os.path.join(ROOT, "configs", "lidar", "ncd_quad.yaml"))
+    lm_tracker = Tracker(slam.grid, ds, {"tracking": lidar["tracking"]})
+
+    def lm(n):
+        for _ in range(n):
+            lm_tracker.track_lm(slam.curr_kf)
+
+    frames(2)
+    torch.cuda.synchronize()
+    breakdown("one SLAM frame (odometry, Adam tracking: 15 steps of 4096 points, "
+              "mapping burst: 15 steps of 11 x 4096)", frames, steps)
+    breakdown("Adam tracking of one frame (15 steps of 4096 points)", track, steps)
+    breakdown("one mapping burst (15 steps of 11 x 4096 points)", mapping, steps)
+    lm(2)
+    breakdown("LM tracking of one frame (10 iterations of 4096 points)", lm, steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
-    ap.add_argument("which", nargs="?", default="mapping", choices=("mapping", "mesh", "all"))
+    ap.add_argument("which", nargs="?", default="mapping",
+                    choices=("mapping", "mesh", "slam", "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -159,6 +221,8 @@ def main() -> int:
             profile_mapping(chip_smoke, impl, args.steps)
     if which in ("mesh", "all"):
         profile_mesh(chip_smoke)
+    if which in ("slam", "all"):
+        profile_slam(chip_smoke, args.steps)
     return 0
 
 

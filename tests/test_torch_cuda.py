@@ -313,3 +313,84 @@ def test_grid_net_default_decode_runs_kernels(dev):
     for a, b in zip(*results):
         a = a.cpu()
         assert float((a - b).abs().max()) <= 1e-4 * max(float(b.abs().max()), 1e-6)
+
+
+POINTS_ONLY_CASES = ["F1", "F4", "F12", "F1_odd", "scannet_coarse_1e6", "dense_region_1e6",
+                     "padded", "padded_F12", "n0", "n1", "on_face"]
+
+
+@pytest.mark.parametrize("case", POINTS_ONLY_CASES, ids=POINTS_ONLY_CASES)
+def test_interp_points_only_backward(dev, case, monkeypatch):
+    """The backward's points-only mode against the plain version's points'
+    gradient: it allocates nothing but d_x (no table gradient, no copies, so
+    no atomics) and counts in its own launch counter."""
+    from miso_tpu_torch.ops import tiled_interp as ti
+    grid, x, bound, size, _ = _interp_case(dev, case)
+    g = torch.randn((x.shape[0], grid.shape[-1]), device=dev)
+    ref = ti.grid_interpolate_grad_plain(grid, x, bound, g, size, need_grid=False)
+    assert ref[0] is None
+    monkeypatch.setattr(ti, "interp_grad_copies", None)    # never asked for copies
+    table, points = ti.grid_interpolate_grad_cuda.launches, \
+        ti.grid_interpolate_grad_cuda.points_launches
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = ti.grid_interpolate_grad_cuda(grid, x, bound, g, size, need_grid=False)
+    torch.cuda.synchronize()
+    assert got[0] is None
+    assert torch.cuda.max_memory_allocated() - base <= max(512, -(-12 * x.shape[0] // 512) * 512)
+    _grad_close(got[1], ref[1])
+    assert ti.grid_interpolate_grad_cuda.launches == table
+    assert ti.grid_interpolate_grad_cuda.points_launches == points + 1
+    with pytest.raises(ValueError):
+        ti.grid_interpolate_grad_cuda(grid, x, bound, g, size, need_x=False, need_grid=False)
+
+
+def test_frozen_grid_backward_takes_the_points_only_mode(dev):
+    """_GridInterp's backward launches the points-only mode when the grid asks
+    for no gradient, and the table-gradient mode when it does."""
+    from miso_tpu_torch.ops import tiled_interp as ti
+    grid, x, bound, _, _ = _interp_case(dev, "F4")
+    g = torch.randn((x.shape[0], 4), device=dev)
+    for grid_grad in (False, True):
+        gr = grid.clone().requires_grad_(grid_grad)
+        xr = x.clone().requires_grad_()
+        table, points = ti.grid_interpolate_grad_cuda.launches, \
+            ti.grid_interpolate_grad_cuda.points_launches
+        out = ti.grid_interpolate_dispatch(gr, xr, bound)
+        (d_x,) = torch.autograd.grad(out, xr, g)
+        assert ti.grid_interpolate_grad_cuda.points_launches == points + (not grid_grad)
+        assert ti.grid_interpolate_grad_cuda.launches == table + grid_grad
+        _grad_close(d_x, ti.grid_interpolate_grad_plain(grid, x, bound, g)[1])
+
+
+def test_lm_step_launches(dev):
+    """One LM step queries the frozen grid: per level one interp forward and
+    one points-only backward, one decode, no table-gradient backward; its
+    update matches a CPU copy's."""
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda, mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
+    from miso_tpu_torch.slam.tracker import lm_step
+    cfg = {"grid": {"feature_dim": 4, "init_stddev": 0.1, "bound": SCANNET_BOUND,
+                    "base_cell_size": 0.5, "per_level_scale": 5.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "fix": True},
+           "pose": {"num_poses": 4}}
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0))
+    cpu = copy.deepcopy(model).cpu()
+    rng = np.random.default_rng(0)
+    n = 4096
+    args = [rng.uniform([1, 1, 0.5], [9, 7, 2.5], (n, 3)).astype(np.float32),
+            rng.uniform(-0.2, 0.2, (n, 1)).astype(np.float32), np.ones((n, 1), np.float32)]
+    counters = (grid_interpolate_cuda, mlp_decode_cuda, fused_interp_decode_cuda)
+    for fn in counters:
+        fn.launches = 0
+    grid_interpolate_grad_cuda.launches = grid_interpolate_grad_cuda.points_launches = 0
+    for m, d in ((model, dev), (cpu, torch.device("cpu"))):
+        lm_step(m, *(torch.from_numpy(a).to(d) for a in args), 1, 1.0, 0.3, float("inf"))
+    assert [fn.launches for fn in counters] == [2, 1, 0]
+    assert grid_interpolate_grad_cuda.points_launches == 2
+    assert grid_interpolate_grad_cuda.launches == 0
+    for a, b in ((model.rot_corr, cpu.rot_corr), (model.trans_corr, cpu.trans_corr)):
+        torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4, rtol=1e-3)

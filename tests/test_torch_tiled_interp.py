@@ -179,16 +179,17 @@ def test_grad2_matches_jax(second_order):
 @pytest.fixture
 def plain_kernels(monkeypatch):
     """The kernels' plain versions stand in for the kernels, counted."""
-    calls = {"forward": 0, "grad": 0, "need_x": []}
+    calls = {"forward": 0, "grad": 0, "need_x": [], "need_grid": []}
 
     def forward(grid, x, bound, size=None):
         calls["forward"] += 1
         return ti.grid_interpolate_plain(grid, x, bound, size)
 
-    def grad(grid, x, bound, g, size=None, need_x=True):
+    def grad(grid, x, bound, g, size=None, need_x=True, need_grid=True):
         calls["grad"] += 1
         calls["need_x"].append(need_x)
-        return ti.grid_interpolate_grad_plain(grid, x, bound, g, size, need_x)
+        calls["need_grid"].append(need_grid)
+        return ti.grid_interpolate_grad_plain(grid, x, bound, g, size, need_x, need_grid)
 
     monkeypatch.setattr(ti, "grid_interpolate_cuda", forward)
     monkeypatch.setattr(ti, "grid_interpolate_grad_cuda", grad)
@@ -211,6 +212,21 @@ def test_function_first_order_runs_grad_kernel(plain_kernels, first_order):
     assert plain_kernels["forward"] == 2 and plain_kernels["grad"] == 2
     assert plain_kernels["need_x"] == [True, False]
     assert ti._GridInterp.recomputes == recomputes
+
+
+def test_function_frozen_grid_asks_for_the_points_only_mode(plain_kernels, first_order):
+    """A grid that needs no gradient (LM tracking's frozen query): the
+    backward asks the grad kernel for the points' gradient alone."""
+    table, x, cot, ref = first_order
+    xs = t(x, requires_grad=True)
+    out = ti._GridInterp.apply(t(table), xs, t(BOUND), None)
+    (d_x,) = torch.autograd.grad((out * t(cot)).sum(), xs)
+    close(d_x, ref[1], GRAD)
+    assert plain_kernels["grad"] == 1 and plain_kernels["need_grid"] == [False]
+    d_grid, d_x2 = ti.grid_interpolate_grad_plain(t(table), t(x), t(BOUND), t(cot),
+                                                  need_grid=False)
+    assert d_grid is None
+    close(d_x2, ref[1], GRAD)
 
 
 def test_function_create_graph_recomputes(plain_kernels, second_order):
