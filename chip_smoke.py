@@ -71,29 +71,64 @@ Phases, in order; any failure exits non-zero and prints no result:
                load_config with the demo's overrides (13 m cube, 0.5 m / 0.1
                m cells, 8 -> 32 -> 32 -> 1 decoder pretrained on the scene for
                200 epochs, saved with save_pytree, loaded as the config's
-               pretrained_model and fixed), then SubmapSlam: the 50-iteration
-               init burst, and per frame odometry, Adam tracking (15
-               iterations) and a 15-iteration mapping burst drawn on the card
-               from the resident pool; ATE and rotation RMSE after Umeyama
-               alignment, beside the odometry-only trajectory's, which it
-               must beat, and under 3 cm; track and map ms per frame.  Then
-               the LM run (tests/test_slam.py's recipe): a grid trained on
-               keyframes 0-7, keyframe 5 perturbed, Tracker.track_lm with
-               configs/lidar/ncd_quad.yaml's tracking settings, which must
-               halve the translation error and end under 1.72 degrees.
-               Launches exact in both runs (per LM iteration 2 interp
-               forwards, 2 points-only interp backwards, 1 decode); the
+               pretrained_model and fixed), then System on a GridAtlas of the
+               config's capacity (8): the 50-iteration init burst, and per
+               frame odometry, Adam tracking (15 iterations), a 15-iteration
+               mapping burst drawn on the card from the resident pool and the
+               pose-row sync; ATE and rotation RMSE after Umeyama alignment,
+               beside the odometry-only trajectory's, which it must beat, and
+               under 3 cm; the demo's 200-iteration refinement over every
+               keyframe; observed_sdf_query(atlas.params, 0.2) meshed at 256^3
+               over the atlas's global bound, whose F-score at 5 cm must come
+               within 5 points of the JAX package's CPU run of the same demo;
+               track, map and spawn ms per frame (StageProfiler) and one
+               frame's idle share (miso_tpu_torch/utils/profiling.py's
+               breakdown).  Then the LM run (tests/test_slam.py's recipe): a
+               grid trained on keyframes 0-7, keyframe 5 perturbed,
+               Tracker.track_lm with configs/lidar/ncd_quad.yaml's tracking
+               settings, which must halve the translation error and end under
+               1.72 degrees.  Launches exact in every run (per LM iteration 2
+               interp forwards, 2 points-only interp backwards, 1 decode; per
+               lattice chunk one interp forward per live slot and level for
+               the features, as many for the stability, 1 decode); the
                kernels against their plain versions at the path's shapes, and
                the points-only backward at 4096 points and at 1e6 points on
                the ScanNet levels, timed beside the table-and-points call;
-  6. report  - the card, step times, kernel times against the bound, and the
-               kernels line (each kernel's launches: the interp, interp grad
-               and decode kernels' in phase 3's default-decode run, phase 4
-               and phase 5, the points-only backward's in phase 5's LM run,
-               the fused kernel's in phase 3's fused run); the last line is
+  6. quad    - demo/full_slam_newer_college.py --synthetic --scene quad
+               --num_frames 60 --submap_size 30, up to the Fuser: the 40 m
+               courtyard, a LiDAR scan pattern (192 x 64), separate tracking
+               (surface only, 0.6 m voxels) and mapping (0.1 m voxels)
+               sequences, configs/lidar/ncd_quad.yaml with the demo's
+               overrides: LM/GM tracking of 16 iterations, axis-aligned
+               submaps that each cover the site's world box, capacity 8;
+               exactly 2 submaps and 60 keyframes; the ATE within the
+               submaps (each aligned on its own) under the odometry-only
+               trajectory's, and the pre-fusion ATE beside the odometry's and
+               within 5 cm of the JAX package's CPU run of the same
+               configuration (scripts/jax_quad_prefusion.py: 29.05 cm against
+               the odometry's 14.21 cm; across the submaps the trajectory
+               carries the second anchor's drift until the Fuser aligns
+               them); consolidated_grid over the
+               padded world box, its node features against the atlas query
+               (1e-5), the fused-vs-atlas |dSDF| at 2^16 points, the fused
+               grid meshed at 128^3 and its metrics at 10 cm against the GT in
+               the system frame, Chamfer_L1 within 25 % of the JAX package's
+               CPU run (22.17 cm); per-frame times and one frame's idle share
+               as in phase 5; launches exact throughout;
+  7. report  - the card, step times, kernel times against the bound, and the
+               kernels line (each kernel's launches summed over phase 3's
+               default-decode run, phase 4, phase 5 and phase 6; the fused
+               kernel's in phase 3's fused run); the last line is
                {"ok": true, "device": ...}.
 
-Imports torch, numpy, scipy and miso_tpu_torch only.  Needs one CUDA card.
+Phase 2 also holds the atlas queries (query_feature, query_stability,
+__call__) over 3 live slots of mixed bounds (padded storage) at the ScanNet
+widths and 2^20 world points to the same queries on the plain ops, with
+exact launches (one interp forward per live slot and level), and times them
+beside the sum of their kernels' calls.
+
+Imports torch, numpy, scipy and miso_tpu_torch only.
+Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -643,6 +678,105 @@ def phase_interp_kernels():
                       for k, v in ((k, rec[k]) for k in ("fwd", "grad", "grad_x"))))
     return errs, times
 
+# The atlas query (phase 2): 3 live slots of mixed bounds at the ScanNet
+# widths, so that two are padded, at these world poses.
+ATLAS_POINTS = 2 ** 20
+ATLAS_SUBMAPS = [
+    (SCANNET_MODEL["grid"]["bound"], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
+    ([[-0.02, 6.38], [-0.01, 5.24], [-0.01, 3.03]], [0.0, 0.0, 0.3], [2.0, 1.0, 0.0]),
+    ([[-1.0, 7.0], [-2.0, 2.5], [-0.5, 2.0]], [0.05, 0.0, -0.4], [-1.0, 3.0, 0.2]),
+]
+
+
+def build_query_atlas(device, seed=80):
+    """A GridAtlas of configs/rgbd/scannet.yaml's model (its grid and its
+    decoder's widths, random weights) and capacity with ATLAS_SUBMAPS, random
+    features (0.1 N(0, 1)), stability in [0, 1) and small pose corrections
+    on the live slots."""
+    from miso_tpu_torch.config import load_config
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.ops import se3
+    cfg = load_config(os.path.join(ROOT, "configs", "rgbd", "scannet.yaml"))
+    cfg["model"]["decoder"]["pretrained_model"] = None
+    atlas = GridAtlas(cfg["model"], max_kfs_per_submap=4,
+                      capacity=cfg["system"]["submap_capacity"], device=device)
+    for bound, rot, shift in ATLAS_SUBMAPS:
+        R = se3.so3_exp(torch.tensor(rot, dtype=torch.float32)).numpy()
+        atlas.add_submap(np.asarray(bound, np.float32), Rws=R, tws=np.asarray(shift, np.float32))
+        atlas.add_kf()
+    gen = torch.Generator(device=device).manual_seed(seed)
+    p, S = atlas.params, atlas.num_submaps
+    with torch.no_grad():
+        for f in p.features:
+            f[:S] = 0.1 * torch.randn(f[:S].shape, generator=gen, device=device)
+        for st in p.stability:
+            st[:S] = torch.rand(st[:S].shape, generator=gen, device=device)
+        p.sub_rot_corr[:S] = 0.01 * torch.randn((S, 3), generator=gen, device=device)
+        p.sub_trans_corr[:S] = 0.01 * torch.randn((S, 3), generator=gen, device=device)
+    # Storage padded beyond each smaller slot's logical size.
+    check(all(tuple(sz[s].tolist()) != pad for sz, pad in zip(p.sizes, p.pad_spatial)
+              for s in (1, 2)), "the atlas query's slots 1 and 2 are not padded")
+    return atlas
+
+
+def phase_atlas_query():
+    """The atlas queries (query_feature, query_stability, __call__) on the
+    card against the same queries on the plain ops on the card: 3 live slots
+    of mixed bounds at the ScanNet widths, 2^20 world points; exact launches
+    per call (one interp forward per live slot and level, one decode for
+    __call__); times per call beside the sum of their per-slot interp calls
+    (and the decode call)."""
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda, mlp_decode_plain
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_plain
+    dev = torch.device("cuda")
+    atlas = build_query_atlas(dev)
+    p = atlas.params
+    b = torch.as_tensor(atlas.global_bound(), device=dev)
+    x = _points(b, ATLAS_POINTS, torch.Generator(device=dev).manual_seed(81), out_frac=0.05)
+    S, L = p.num_submaps, p.num_levels
+    errs, times = {}, {}
+    counters = kernel_counters()
+    queries = {
+        "query_feature": (lambda: p.query_feature(x),
+                          lambda: p.query_feature(x, interpolate=grid_interpolate_plain),
+                          p.features, dict(interp=L * S, decode=0)),
+        "query_stability": (lambda: p.query_stability(x),
+                            lambda: p.query_stability(x, interpolate=grid_interpolate_plain),
+                            p.stability, dict(interp=L * S, decode=0)),
+        "forward": (lambda: p(x),
+                    lambda: p(x, interpolate=grid_interpolate_plain, decode=mlp_decode_plain),
+                    p.features, dict(interp=L * S, decode=1)),
+    }
+    R, t = p.updated_submap_poses()
+    xs = [se3.transform_points_from(x, R[s], t[s]).contiguous() for s in range(S)]
+    decoder = tuple((W.detach(), bb.detach()) for W, bb in p.decoder)
+    with torch.no_grad():
+        feats = p.query_feature(x)
+        for name, (fast, plain, tables, per_call) in queries.items():
+            _zero_counts(counters)
+            got = fast()
+            torch.cuda.synchronize()
+            c = _read_counts(counters)
+            for k, n in dict(per_call, interp_grad=0, interp_points_grad=0, fused=0).items():
+                check(c[k] == n, f"atlas {name}: {k} launched {c[k]} times, expected {n} "
+                      f"({S} live slots, {L} levels)")
+            _check_values(f"atlas_{name}", got, plain(), errs)
+            parts = sum(cuda_ms(lambda s=s, l=l: grid_interpolate_cuda(
+                tables[l][s], xs[s], p.bounds[s], p.sizes[l][s])) for s in range(S)
+                for l in range(L))
+            if per_call["decode"]:
+                parts += cuda_ms(lambda: mlp_decode_cuda(decoder, feats))
+            times[name] = dict(ms=cuda_ms(fast), plain_ms=cuda_ms(plain), parts_ms=parts,
+                               points=ATLAS_POINTS, live_slots=S, launches=c)
+            log(f"  atlas {name}: {ATLAS_POINTS} points, {S} live slots of capacity "
+                f"{p.capacity}: {times[name]['ms']:.4f} ms a call (its kernels alone "
+                f"{parts:.4f}), plain ops {times[name]['plain_ms']:.4f} ms; launches {c}")
+    times["pad_spatial"] = [list(v) for v in p.pad_spatial]
+    times["sizes"] = [sz[:S].tolist() for sz in p.sizes]
+    return errs, times
+
+
 def _decode_bounds(params, n):
     """(ms, what bounds it) of one decode call of n points, and the FP32 SIMT
     bound beside it.  The kernel runs the hidden layers in 3xTF32 on the
@@ -1181,7 +1315,8 @@ def phase_mesh():
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: online SLAM of one submap (demo/full_slam_scannet.py --synthetic).
+# Phase 5: demo/full_slam_scannet.py --synthetic: System and GridAtlas, the
+# final refinement and the observed mesh.
 # ---------------------------------------------------------------------------
 
 SLAM_FRAMES = 24
@@ -1193,6 +1328,16 @@ SLAM_SEQ = dict(frame_samples=2 ** 13, frame_batchsize=4096, trunc_dist=0.3,
 SLAM_BOUND = [[-6.5, 6.5], [-6.5, 6.5], [-6.5, 6.5]]
 SLAM_PRETRAIN_EPOCHS = 200
 MAX_ATE_M = 0.03
+# demo/full_slam_scannet.py's defaults: the refinement over every keyframe,
+# the 256^3 observed mesh (stability above 0.2) and its metrics.
+SLAM_FINAL_ITERS = 200
+SLAM_MESH_RESOLUTION = 256
+SLAM_STABILITY_THRESH = 0.2
+# The JAX package's own CPU run of the same demo with its defaults
+# (`JAX_PLATFORMS=cpu python demo/full_slam_scannet.py --synthetic`): F-score
+# 62.210 %; the port's must come within 5 points of it.
+JAX_CPU_FSCORE = 62.210134889670606
+FSCORE_MARGIN = 5.0
 # The LM run, tests/test_slam.py:120-140: a grid trained on keyframes 0-7,
 # keyframe 5 rotated by 0.03 rad about z and moved by (5, -4, 2) cm.
 LM_TRAIN_KFS = 8
@@ -1210,6 +1355,7 @@ def slam_config():
     cfg = load_config(os.path.join(ROOT, "configs", "rgbd", "scannet.yaml"))
     cfg["system"].update({"submap_size": 100, "submap_local_bound": SLAM_BOUND,
                           "profile": True})
+    cfg["visualizer"] = {"enable": False}
     cfg["model"]["grid"].update({"base_cell_size": 0.5, "per_level_scale": 5.0,
                                  "bound": SLAM_BOUND})
     cfg["model"]["decoder"].update({"fix": False, "pretrained_model": None, "hidden_dim": 32})
@@ -1232,7 +1378,7 @@ def slam_sequence(n_frames=SLAM_FRAMES, seq_kw=SLAM_SEQ):
 
 
 def pretrain_decoder(mesh, cfg_model, device, epochs=SLAM_PRETRAIN_EPOCHS,
-                     batch=2 ** 13, total=2 ** 16):
+                     batch=2 ** 13, total=2 ** 16, trunc_dist=0.3):
     """demo/full_slam_scannet.py::pretrain_decoder_synthetic: the decoder
     trained with a grid on the scene's SDF, then kept."""
     from miso_tpu_torch.datasets.sdf_3d import Sdf3D
@@ -1240,13 +1386,13 @@ def pretrain_decoder(mesh, cfg_model, device, epochs=SLAM_PRETRAIN_EPOCHS,
     from miso_tpu_torch.losses.sdf import tsdf_loss_3d
     from miso_tpu_torch.models.grid_net import create_grid_net
     from miso_tpu_torch.train.trainer import GridTrainer
-    ds = Sdf3D(mesh, batch_size=batch, total_samples=total, trunc_dist=0.3)
+    ds = Sdf3D(mesh, batch_size=batch, total_samples=total, trunc_dist=trunc_dist)
     cfg = copy.deepcopy(cfg_model)
     cfg["decoder"].update({"fix": False, "pretrained_model": None})
     cfg["pose"] = {"optimize": False, "num_poses": 1}
     model = create_grid_net(cfg, generator=torch.Generator().manual_seed(7), device=device)
     loss_fn = make_loss(tsdf_loss_3d, sdf_weight=3e3, sign_weight=1e2, eik_weight=0.0,
-                        trunc_dist=0.3)
+                        trunc_dist=trunc_dist)
     GridTrainer({"optimizer": "adam", "learning_rate": 5e-3, "epochs": epochs,
                  "max_epochs_in_level": epochs // 3,
                  "grid_training_mode": "coordinate+joint"}, model, loss_fn, ds).train()
@@ -1267,35 +1413,104 @@ def odometry_trajectory(ds):
     return np.stack(T)
 
 
-def run_online(cfg, ds, device, counters):
-    """SubmapSlam over the whole sequence; returns the report, the world
-    trajectory (n, 4, 4) and the grid."""
-    from miso_tpu_torch.models.grid_net import create_grid_net
-    from miso_tpu_torch.slam.submap_slam import SubmapSlam
-    grid = create_grid_net(cfg["model"], bound=cfg["system"]["submap_local_bound"],
-                           num_poses=cfg["system"]["submap_size"],
-                           generator=torch.Generator().manual_seed(0), device=device)
-    R0, t0 = ds.noisy_kf_pose_in_world(0)
-    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
-    sync()
+def _stage_percentiles(summary, key):
+    v = summary.get(key)
+    return None if v is None else dict(median=v["median"], p90=v["p90"])
+
+
+def run_online(cfg, ds, counters, final_iters=SLAM_FINAL_ITERS, ds_map=None,
+               R0=None, label="the SLAM run", decoder=None):
+    """The demo's System over the whole sequence on a GridAtlas of the
+    config's capacity on the card (tracking ``ds``, mapping ``ds_map`` or
+    ``ds``; the given ``decoder`` installed fixed, else the config's), then,
+    with ``final_iters``, its refinement over every keyframe (features, poses
+    locked) and the sync of the atlas.  Returns the report, the world
+    trajectory (n, 4, 4), the System and the atlas."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.system import System
+    from miso_tpu_torch.utils.profiling import breakdown
+    dev = torch.device("cuda")
+    atlas = GridAtlas(cfg["model"], max_kfs_per_submap=cfg["system"]["submap_size"],
+                      capacity=cfg["system"].get("submap_capacity"), device=dev)
+    if decoder is not None:
+        atlas.set_decoder(decoder, fixed=True)
+    R0_, t0 = ds.noisy_kf_pose_in_world(0)
+    R0 = R0_ if R0 is None else R0
+    torch.cuda.synchronize()
     _zero_counts(counters)
     t_start = time.perf_counter()
-    slam = SubmapSlam(grid, ds, ds, cfg, R0, t0)
-    sync()
+    system = System(atlas, ds, ds_map or ds, cfg, R0, t0, verbose=False)
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t_start
-    slam.run()
-    sync()
+    # Step by step up to the last two frames, with the card's allocated
+    # bytes and the mapping sequence's device pool after each step.
+    ds_pool = ds_map or ds
+    memory, pools = [], set()
+    while atlas.num_keyframes < ds.num_kfs - 2:
+        system.step()
+        memory.append(torch.cuda.memory_allocated(dev))
+        pools.add(id(getattr(ds_pool, "_pool", None)))
+    # The last two frames: one unprofiled, one under torch.profiler.
+    frame = breakdown("one frame of " + label, lambda n: [system.step() for _ in range(n)], 1)
+    system.run()
+    torch.cuda.synchronize()
     run_s = time.perf_counter() - t_start
     counts = _read_counts(counters)
-    Rw, tw = slam.kf_poses_in_world()
+    refine_s, refine_counts = 0.0, None
+    if final_iters:
+        _zero_counts(counters)
+        t0_ = time.perf_counter()
+        system.mapper.mapping(list(range(ds.num_kfs)), iterations=final_iters,
+                              level_iterations=max(final_iters // 3, 1))
+        system.tracker.grid = system.mapper.grid
+        system._sync_submap_from_tracker_mapper()
+        torch.cuda.synchronize()
+        refine_s = time.perf_counter() - t0_
+        refine_counts = _read_counts(counters)
+    Rw, tw = system.kf_poses_in_world()
     T_est = np.stack([_pose(R, t) for R, t in zip(Rw, tw)])
     m = cfg["mapping"]
-    map_steps = m.get("init_iterations", 50) + (ds.num_kfs - 1) * m.get("iters_per_frame", 15)
-    track_steps = (ds.num_kfs - 1) * 15
-    report = dict(frames=slam.num_keyframes, init_s=init_s, run_s=run_s, launches=counts,
-                  map_steps=map_steps, track_steps=track_steps,
-                  stage_ms={k: [float(v) for v in vs] for k, vs in slam.stage_ms.items()})
-    return report, T_est, slam.grid
+    prof = system.profile_summary()
+    report = dict(frames=atlas.num_keyframes, submaps=atlas.num_submaps,
+                  capacity=atlas.params.capacity, init_s=init_s, run_s=run_s,
+                  launches=counts, refine_iters=final_iters, refine_s=refine_s,
+                  refine_launches=refine_counts,
+                  map_steps=m.get("init_iterations", 50)
+                  + (ds.num_kfs - 1) * m.get("iters_per_frame", 15),
+                  track_steps=(ds.num_kfs - 1) * 15,
+                  track_ms=_stage_percentiles(prof, "track_ms"),
+                  map_ms=_stage_percentiles(prof, "map_ms"),
+                  spawn_ms=_stage_percentiles(prof, "submap_init_ms"),
+                  frame_ms=_stage_percentiles(prof, "frame_ms"), profile=prof,
+                  profiled_frame=frame, spawn_parts_ms=system.spawn_ms,
+                  memory_after_step=memory, device_pools=len(pools))
+    return report, T_est, system, atlas
+
+
+def observed_mesh(atlas, resolution, thresh, counters):
+    """The demo's final mesh: observed_sdf_query(atlas.params, thresh) over
+    atlas.global_bound() at resolution^3; every lattice chunk must launch one
+    interp forward per live slot and level for the features, as many for the
+    stability, and one decode.  Returns (mesh, report)."""
+    from miso_tpu_torch.utils.sdf import observed_sdf_query, save_mesh
+    bound = atlas.global_bound()
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    mesh = save_mesh(observed_sdf_query(atlas.params, thresh), bound, None,
+                     resolution=resolution)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = _read_counts(counters)
+    chunks = -(-resolution ** 3 // MESH_CHUNK)
+    per = 2 * atlas.num_levels * atlas.num_submaps
+    want = {"interp": per * chunks, "decode": chunks, "interp_grad": 0,
+            "interp_points_grad": 0, "fused": 0, "interp_recompute_backward": 0}
+    for name, n in want.items():
+        check(c[name] == n, f"observed mesh: {name} launched {c[name]} times in {chunks} "
+              f"lattice chunks, expected {n} ({per} interp and 1 decode a chunk)")
+    return mesh, dict(resolution=resolution, seconds=seconds, chunks=chunks, launches=c,
+                      bound=bound.tolist(), vertices=int(len(mesh.vertices)))
 
 
 def run_lm_recovery(cfg, lidar_tracking, ds, device, counters, train_epochs=LM_TRAIN_EPOCHS):
@@ -1446,24 +1661,35 @@ def _slam_kernel_checks(grid, ds, lm_grid, lm_batch):
     return errs, times
 
 
-def _percentiles(ms):
-    ms = np.asarray(ms)
-    return dict(median=float(np.median(ms)), p90=float(np.percentile(ms, 90)))
+def _log_frames(report, card):
+    """The per-frame stage times of a System run, its spawns and its
+    profiled frame."""
+    f = report.get("profiled_frame") or {}
+    spawns = [sum(p.values()) for p in report["spawn_parts_ms"]]
+    log(f"  per frame (StageProfiler, CUDA-synchronized; {card}): track "
+        f"{report['track_ms']['median']:.2f} ms median, {report['track_ms']['p90']:.2f} p90; "
+        f"map {report['map_ms']['median']:.2f} median, {report['map_ms']['p90']:.2f} p90; "
+        f"frame {report['frame_ms']['median']:.2f} median, {report['frame_ms']['p90']:.2f} p90; "
+        f"spawns {', '.join(f'{v:.2f}' for v in spawns) or 'none'} ms"
+        + (f"; one frame {f['wall_ms']:.2f} ms of wall time, {f['device_ms']:.2f} of device "
+           f"time, idle share {f['idle_share']:.3f}" if f else ""))
 
 
-def phase_slam():
+def phase_slam(card):
     """demo/full_slam_scannet.py --synthetic through the port: the decoder
-    pretrained and fixed, the init burst, then per frame odometry,
-    Tracker.track (Adam) and a mapping burst; ATE against the ground truth
-    and against the odometry alone.  Then the LM run on the same sequence and
-    model.  Launch counts exact for both; the kernels held to their plain
+    pretrained and fixed, System on a GridAtlas (the init burst, then per
+    frame odometry, Tracker.track (Adam) and a mapping burst); ATE against
+    the ground truth and against the odometry alone; the 200-iteration
+    refinement over every keyframe; the observed 256^3 mesh and its F-score
+    against the JAX package's CPU run.  Then the LM run on the same sequence
+    and model.  Launch counts exact for all; the kernels held to their plain
     versions at the path's shapes."""
     import tempfile
 
     from miso_tpu_torch.config import load_config
     from miso_tpu_torch.ops import se3
     from miso_tpu_torch.train.checkpoint import save_pytree
-    from miso_tpu_torch.utils.eval import trajectory_error
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics, trajectory_error
 
     dev = torch.device("cuda")
     counters = kernel_counters()
@@ -1481,36 +1707,56 @@ def phase_slam():
         path = os.path.join(tmp, "decoder.npz")
         save_pytree(path, decoder)
         cfg["model"]["decoder"].update({"fix": True, "pretrained_model": path})
-        online, T_est, grid = run_online(cfg, ds, dev, counters)
+        online, T_est, system, atlas = run_online(cfg, ds, counters,
+                                                  label="demo/full_slam_scannet.py")
+        mesh_pred, lattice = observed_mesh(atlas, SLAM_MESH_RESOLUTION, SLAM_STABILITY_THRESH,
+                                           counters)
         lidar = load_config(os.path.join(ROOT, "configs", "lidar", "ncd_quad.yaml"))
         lm, tracker = run_lm_recovery(cfg, dict(lidar["tracking"]), ds, dev, counters)
 
     T_gt = np.stack([_pose(*ds.true_kf_pose_in_world(k)) for k in range(ds.num_kfs)])
     ate = trajectory_error(T_est, T_gt, align=True)
     ate_odom = trajectory_error(odometry_trajectory(ds), T_gt, align=True)
-    online.update(ate=ate, ate_odometry_only=ate_odom,
-                  track_ms=_percentiles(online["stage_ms"]["track"]),
-                  map_ms=_percentiles(online["stage_ms"]["map"]))
+    t0 = time.perf_counter()
+    recon = mesh_reconstruction_metrics(mesh_pred, mesh, n_points=100000, threshold=0.05,
+                                        truncation=0.5)
+    lattice["metrics_s"] = time.perf_counter() - t0
+    online.update(ate=ate, ate_odometry_only=ate_odom, mesh=lattice, reconstruction=recon)
     c = online["launches"]
-    log(f"  online: {online['frames']} frames, init burst {online['init_s']:.2f} s, run "
-        f"{online['run_s']:.2f} s; track {online['track_ms']['median']:.2f} ms median, "
-        f"{online['track_ms']['p90']:.2f} ms p90; map {online['map_ms']['median']:.2f} ms "
-        f"median, {online['map_ms']['p90']:.2f} ms p90 (CUDA-synchronized); launches {c}")
+    log(f"  online: {online['frames']} frames in {online['submaps']} submap (capacity "
+        f"{online['capacity']}), init burst {online['init_s']:.2f} s, run "
+        f"{online['run_s']:.2f} s; launches {c}")
+    _log_frames(online, card)
     log(f"  ATE RMSE {100 * ate['ate_rmse']:.3f} cm, rotation RMSE "
         f"{ate['rot_rmse_deg']:.4f} deg; odometry alone: ATE RMSE "
         f"{100 * ate_odom['ate_rmse']:.3f} cm, rotation RMSE {ate_odom['rot_rmse_deg']:.4f} deg")
+    log(f"  refinement: {online['refine_iters']} iterations over {ds.num_kfs} keyframes in "
+        f"{online['refine_s']:.2f} s ({card}); launches {online['refine_launches']}")
+    log(f"  observed mesh {SLAM_MESH_RESOLUTION}^3 over the atlas's global bound: "
+        f"{lattice['seconds']:.2f} s (lattice and marching cubes; {card}), {lattice['vertices']} "
+        f"vertices; F-score {recon['F-score (%)']:.3f} % (the JAX package's CPU run "
+        f"{JAX_CPU_FSCORE:.3f} %), Chamfer_L1 {recon['Chamfer_L1 (cm)']:.3f} cm; launches "
+        f"{lattice['launches']}")
+    check(online["submaps"] == 1 and online["frames"] == ds.num_kfs,
+          f"{online['submaps']} submaps, {online['frames']} keyframes")
     check(ate["ate_rmse"] < ate_odom["ate_rmse"],
           f"ATE {ate['ate_rmse']:.4f} m not below the odometry's {ate_odom['ate_rmse']:.4f} m")
     check(ate["ate_rmse"] < MAX_ATE_M, f"ATE {ate['ate_rmse']:.4f} m not below {MAX_ATE_M} m")
+    check(recon["F-score (%)"] >= JAX_CPU_FSCORE - FSCORE_MARGIN,
+          f"F-score {recon['F-score (%)']:.3f} % more than {FSCORE_MARGIN} points under the "
+          f"JAX package's {JAX_CPU_FSCORE:.3f} %")
     # Mapping (features and stability queried: 4 interp and 4 interp grad a
     # step) and Adam tracking (2 and 2) take the table-gradient backward.
     ms, ts = online["map_steps"], online["track_steps"]
-    want = {"interp": 4 * ms + 2 * ts, "interp_grad": 4 * ms + 2 * ts,
-            "decode": ms + ts, "interp_points_grad": 0, "fused": 0,
-            "interp_recompute_backward": 0}
-    for name, n in want.items():
-        check(c[name] == n, f"online run: {name} launched {c[name]} times, expected {n} "
-              f"({ms} mapping and {ts} tracking steps)")
+    for what, counts, m_steps, t_steps in (("online run", c, ms, ts),
+                                           ("refinement", online["refine_launches"],
+                                            online["refine_iters"], 0)):
+        want = {"interp": 4 * m_steps + 2 * t_steps, "interp_grad": 4 * m_steps + 2 * t_steps,
+                "decode": m_steps + t_steps, "interp_points_grad": 0, "fused": 0,
+                "interp_recompute_backward": 0}
+        for name, n in want.items():
+            check(counts[name] == n, f"{what}: {name} launched {counts[name]} times, expected "
+                  f"{n} ({m_steps} mapping and {t_steps} tracking steps)")
 
     c = lm["launches"]
     log(f"  LM run: grid trained on keyframes 0-{LM_TRAIN_KFS - 1} ({lm['train_epochs']} "
@@ -1537,8 +1783,304 @@ def phase_slam():
     R, t = tracker.grid.updated_kf_pose(LM_KF)
     lm_batch = se3.transform_points_to(torch.as_tensor(b["coords_frame"], device=dev),
                                        R, t).contiguous()
-    errs, times = _slam_kernel_checks(grid, ds, tracker.grid, lm_batch)
+    errs, times = _slam_kernel_checks(system.mapper.grid, ds, tracker.grid, lm_batch)
     return dict(online=online, lm=lm, points_only=times), errs
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: two-submap online SLAM (demo/full_slam_newer_college.py --synthetic
+# --scene quad --num_frames 60 --submap_size 30), up to the Fuser; then the
+# atlas consolidated into one grid and meshed.
+# ---------------------------------------------------------------------------
+
+QUAD_FRAMES = 60
+QUAD_SUBMAP_SIZE = 30
+QUAD_MESH_RESOLUTION = 128
+QUAD_COMPARE_POINTS = 2 ** 16
+QUAD_NODE_CHECK = 2 ** 16        # fused-grid nodes held to the atlas query, per level
+QUAD_CHUNK = 2 ** 18             # consolidated_grid's chunk of nodes
+QUAD_FSCORE_THRESH = 0.10        # demo/full_slam_newer_college.py:646-648
+# The JAX package's run of the same configuration on the CPU
+# (scripts/jax_quad_prefusion.py): pre-fusion ATE 29.05 cm against the
+# odometry's 14.21 cm (the submaps are each tracked better than the
+# odometry, 4.11 cm against 4.93 cm, and the second sits at its anchor's
+# drift from the first until the Fuser aligns them), and a 128^3 fused mesh
+# at Chamfer_L1 22.17 cm, F-score 4.77 % at 10 cm.  Its TPU run read 28.50 cm
+# (results/smoke_quad6/results.json, older code).  The port is held to the
+# CPU run's figures with margins of 5 cm of ATE and 25 % of Chamfer_L1, some
+# 7 and 10 times the spread of the three readings so far.
+JAX_QUAD_ATE_M = 0.2904777929399223
+JAX_QUAD_CHAMFER_CM = 22.174346457465948
+JAX_QUAD_FSCORE = 4.7734672672043565
+QUAD_MAX_ATE_M = JAX_QUAD_ATE_M + 0.05
+QUAD_MAX_CHAMFER_CM = 1.25 * JAX_QUAD_CHAMFER_CM
+
+
+def quad_setup():
+    """demo/full_slam_newer_college.py:266-342 for ``--synthetic --scene
+    quad``: the 40 m courtyard toured by a LiDAR (192 x 64 rays), a sparse
+    surface-only tracking sequence (0.6 m voxels) and a dense mapping one
+    (0.1 m voxels, near-surface, free-space and behind-surface samples),
+    configs/lidar/ncd_quad.yaml with the demo's overrides (axis-aligned
+    submaps that each cover the whole site's world box).  Returns (the GT
+    mesh, the GT mesh in the system frame, ds_track, ds_map, cfg, the world
+    box)."""
+    from miso_tpu_torch.config import load_config
+    from miso_tpu_torch.datasets.sequence import SdfSequence, circuit_trajectory
+    from miso_tpu_torch.datasets.shapes import quad_scene
+    from miso_tpu_torch.native import TriangleMesh
+    verts, tris = quad_scene(40.0, seed=0, path_half_extent=14.0)
+    mesh = TriangleMesh(verts, tris)
+    R, t = circuit_trajectory(14.0, 1.5, QUAD_FRAMES, laps=1.0, wobble=0.3)
+    scan = dict(scan_pattern="lidar", width=192, height=64)
+    # The site box in the system frame (identity rotation at the first pose).
+    t0 = t[0] + 0.0
+    v_sys = (verts - t0) @ R[0] + t0
+    world_bound = np.stack([v_sys.min(0) - 1.0, v_sys.max(0) + 1.0], axis=1)
+    bound = (world_bound - world_bound.mean(axis=1, keepdims=True)).tolist()
+    noise = dict(odom_std_rad=0.002, odom_std_meter=0.01)
+    ds_track = SdfSequence(mesh, R, t, frame_samples=2 ** 12, frame_batchsize=2048,
+                           trunc_dist=0.5, surface_only=True, voxel_size=0.6, **noise, **scan)
+    ds_map = SdfSequence(mesh, R, t, frame_samples=2 ** 12, frame_batchsize=2048,
+                         trunc_dist=0.5, near_surface_n=2, near_surface_std=0.25,
+                         free_space_n=1, behind_surface_n=1, voxel_size=0.1, **noise, **scan)
+    cfg = load_config(os.path.join(ROOT, "configs", "lidar", "ncd_quad.yaml"))
+    cfg["system"].update({"submap_size": QUAD_SUBMAP_SIZE, "submap_local_bound": bound,
+                          "submap_axis_aligned": True, "submap_world_bound": world_bound.tolist(),
+                          "profile": True})
+    cfg["model"]["grid"].update({"base_cell_size": 1.0, "per_level_scale": 5.0, "bound": bound})
+    cfg["model"]["decoder"].update({"fix": False, "pretrained_model": None, "hidden_dim": 32})
+    cfg["model"]["pose"]["num_poses"] = max(QUAD_SUBMAP_SIZE, 100)
+    cfg["mapping"].update({"trunc_dist": 0.5, "finite_diff_eps": 0.1, "eik_trunc_dist": 0.5,
+                           "weight_fs": 0.3, "learning_rate": 3e-3, "loss_type": "L2",
+                           "iters_per_frame": 15, "level_iters_per_frame": 5,
+                           "init_iterations": 100, "mask_bound": 1.0})
+    cfg["tracking"].update({"solver": "lm", "loss_type": "GM", "gm_scale_sdf": 0.2,
+                            "lm_max_iter": 16, "trunc_dist": 0.5, "lm_tol_deg": 0.005,
+                            "lm_tol_m": 0.001})
+    cfg["visualizer"] = {"enable": False}
+    return (mesh, TriangleMesh(v_sys.astype(np.float32), tris), ds_track, ds_map, cfg,
+            world_bound)
+
+
+def submap_ate(T_est, T_gt, submap_of_kf):
+    """ATE RMSE within the submaps: each submap's keyframes aligned to the
+    ground truth on their own (Umeyama), the errors pooled over every
+    keyframe.  Returns {'ate_rmse', 'per_submap'}."""
+    from miso_tpu_torch.utils.eval import trajectory_error
+    sub = np.asarray(submap_of_kf)
+    per, sq = [], 0.0
+    for s in range(int(sub.max()) + 1):
+        rmse = trajectory_error(T_est[sub == s], T_gt[sub == s], align=True)["ate_rmse"]
+        per.append(rmse)
+        sq += rmse ** 2 * int((sub == s).sum())
+    return dict(ate_rmse=float(np.sqrt(sq / len(sub))), per_submap=per)
+
+
+def consolidate_and_compare(atlas, mesh_bound, counters):
+    """consolidated_grid(bound=mesh_bound) with exact launches (per chunk of
+    each level's nodes, one interp forward per live slot and level for the
+    features and as many for the stability); its node features against
+    atlas.query_feature at the node centres (exact by construction, 1e-5);
+    the fused-vs-atlas |dSDF| at random points in the bound."""
+    from miso_tpu_torch.models.grid_atlas import node_centres
+    from miso_tpu_torch.ops.interp import grid_shape_for_bound
+    p = atlas.params
+    dev, L, S, F = atlas.device, atlas.num_levels, atlas.num_submaps, p.fdim
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    fused = atlas.consolidated_grid(chunk=QUAD_CHUNK, bound=mesh_bound)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = _read_counts(counters)
+    chunks = sum(-(-int(np.prod(f.shape[:3])) // QUAD_CHUNK) for f in fused.features)
+    want = dict(interp=2 * L * S * chunks, decode=0, interp_grad=0, interp_points_grad=0,
+                fused=0, interp_recompute_backward=0)
+    for name, n in want.items():
+        check(c[name] == n, f"consolidation: {name} launched {c[name]} times in {chunks} "
+              f"chunks, expected {n}")
+    node_err = 0.0
+    gen = torch.Generator().manual_seed(90)
+    with torch.no_grad():
+        for level, f in enumerate(fused.features):
+            shape = f.shape[:3]
+            cell = atlas.params.cell_sizes[level]
+            check(tuple(shape) == grid_shape_for_bound(mesh_bound, cell),
+                  f"fused level {level}: shape {tuple(shape)}")
+            nodes = int(np.prod(shape))
+            idx = torch.randint(0, nodes, (min(QUAD_NODE_CHECK, nodes),), generator=gen).to(dev)
+            centres = node_centres(mesh_bound, shape, dev)[idx]
+            _zero_counts(counters)
+            ref = p.query_feature(centres)[:, level * F:(level + 1) * F]
+            got = f.reshape(-1, F)[idx]
+            n = _read_counts(counters)["interp"]
+            check(n == L * S, f"node check: {n} interp launches, expected {L * S}")
+            err = float((got - ref).abs().max())
+            node_err = max(node_err, err)
+            check(torch.allclose(got, ref, atol=1e-5, rtol=1e-5),
+                  f"fused level {level}: node features off the atlas query by {err:.3e}")
+        r = np.random.default_rng(0)
+        pts = torch.as_tensor(r.uniform(mesh_bound[:, 0], mesh_bound[:, 1],
+                                        (QUAD_COMPARE_POINTS, 3)).astype(np.float32), device=dev)
+        _zero_counts(counters)
+        sa = p(pts)
+        sf = fused(pts)
+        cc = _read_counts(counters)
+        check(cc["interp"] == L * S + L and cc["decode"] == 2,
+              f"field comparison: launches {cc}, expected {L * S + L} interp and 2 decode")
+        dd = (sa - sf).abs().reshape(-1).cpu().numpy()
+    return fused, dict(seconds=seconds, chunks=chunks, launches=c,
+                       fused_shapes=[list(f.shape[:3]) for f in fused.features],
+                       node_max_abs_err=node_err,
+                       sdf_error=dict(mean_abs=float(dd.mean()),
+                                      p99_abs=float(np.quantile(dd, 0.99)),
+                                      max_abs=float(dd.max())))
+
+
+def fused_mesh(fused, mesh_bound, counters):
+    """save_mesh of the fused grid at QUAD_MESH_RESOLUTION^3: per lattice
+    chunk one interp forward per level and one decode."""
+    from miso_tpu_torch.utils.sdf import save_mesh
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    mesh = save_mesh(fused, mesh_bound, None, resolution=QUAD_MESH_RESOLUTION)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = _read_counts(counters)
+    chunks = -(-QUAD_MESH_RESOLUTION ** 3 // MESH_CHUNK)
+    want = dict(interp=fused.num_levels * chunks, decode=chunks, interp_grad=0,
+                interp_points_grad=0, fused=0, interp_recompute_backward=0)
+    for name, n in want.items():
+        check(c[name] == n, f"fused mesh: {name} launched {c[name]} times, expected {n}")
+    return mesh, dict(resolution=QUAD_MESH_RESOLUTION, seconds=seconds, chunks=chunks,
+                      launches=c, vertices=int(len(mesh.vertices)))
+
+
+def phase_quad(card):
+    """demo/full_slam_newer_college.py --synthetic --scene quad --num_frames
+    60 --submap_size 30 through the port, up to the Fuser: the decoder
+    pretrained (200 epochs) and fixed, System on a GridAtlas of the config's
+    capacity (LM/GM tracking of 16 iterations, mapping bursts), exactly 2
+    submaps and 60 keyframes; the ATE within the submaps under the
+    odometry-only trajectory's and the whole pre-fusion ATE under
+    QUAD_MAX_ATE_M; then consolidated_grid over the padded world box, its nodes
+    against the atlas query, the fused-vs-atlas |dSDF|, the 128^3 mesh of the
+    fused grid and its metrics at 10 cm against the GT in the system frame,
+    Chamfer_L1 under QUAD_MAX_CHAMFER_CM.  Launch counts exact throughout."""
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics, trajectory_error
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    mesh, gt_sys, ds_track, ds_map, cfg, world_bound = quad_setup()
+    seq_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    decoder = pretrain_decoder(mesh, cfg["model"], dev, trunc_dist=0.5)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    cfg["model"]["decoder"]["fix"] = True
+    log(f"  sequences: {ds_track.num_kfs} frames, tracking and mapping simulated in "
+        f"{seq_s:.2f} s; decoder pretrained ({SLAM_PRETRAIN_EPOCHS} epochs) in "
+        f"{pretrain_s:.2f} s")
+    online, T_est, system, atlas = run_online(
+        cfg, ds_track, counters, final_iters=0, ds_map=ds_map,
+        R0=np.eye(3, dtype=np.float32), label="the quad run", decoder=decoder)
+    T_gt = np.stack([_pose(*ds_track.true_kf_pose_in_world(k)) for k in range(ds_track.num_kfs)])
+    T_odom = odometry_trajectory(ds_track)
+    ate = trajectory_error(T_est, T_gt, align=True)
+    ate_odom = trajectory_error(T_odom, T_gt, align=True)
+    sub = [atlas.submap_id_for_kf(k) for k in range(QUAD_FRAMES)]
+    in_sub = {name: submap_ate(T, T_gt, sub) for name, T in (("slam", T_est), ("odom", T_odom))}
+    online.update(ate_prefusion=ate, ate_odometry_only=ate_odom, ate_in_submaps=in_sub)
+    c = online["launches"]
+    log(f"  online: {online['frames']} frames in {online['submaps']} submaps (capacity "
+        f"{online['capacity']}), run {online['run_s']:.2f} s; launches {c}")
+    _log_frames(online, card)
+    log(f"  pre-fusion ATE RMSE {100 * ate['ate_rmse']:.3f} cm, rotation RMSE "
+        f"{ate['rot_rmse_deg']:.4f} deg; odometry alone: ATE RMSE "
+        f"{100 * ate_odom['ate_rmse']:.3f} cm, rotation RMSE {ate_odom['rot_rmse_deg']:.4f} deg")
+    log(f"  within the submaps (each aligned on its own): ATE RMSE "
+        f"{100 * in_sub['slam']['ate_rmse']:.3f} cm (per submap "
+        f"{', '.join(f'{100 * v:.3f}' for v in in_sub['slam']['per_submap'])}); odometry alone "
+        f"{100 * in_sub['odom']['ate_rmse']:.3f} cm "
+        f"({', '.join(f'{100 * v:.3f}' for v in in_sub['odom']['per_submap'])})")
+    expected_submaps = -(-QUAD_FRAMES // QUAD_SUBMAP_SIZE)
+    check(online["submaps"] == expected_submaps and online["frames"] == QUAD_FRAMES,
+          f"{online['submaps']} submaps and {online['frames']} keyframes, expected "
+          f"{expected_submaps} and {QUAD_FRAMES}")
+    # Tracking must beat the odometry inside the submaps; across them the
+    # trajectory carries the anchors' drift, which fusion corrects.
+    check(in_sub["slam"]["ate_rmse"] < in_sub["odom"]["ate_rmse"],
+          f"ATE within the submaps {in_sub['slam']['ate_rmse']:.4f} m not below the "
+          f"odometry's {in_sub['odom']['ate_rmse']:.4f} m")
+    check(ate["ate_rmse"] < QUAD_MAX_ATE_M,
+          f"pre-fusion ATE {ate['ate_rmse']:.4f} m not below {QUAD_MAX_ATE_M:.4f} m (the "
+          f"JAX package's CPU run {JAX_QUAD_ATE_M:.4f} m + 5 cm)")
+    # Every Mapper drew from the one device pool of the mapping sequence, and
+    # nothing of the first submap's tracker and mapper stayed on the card:
+    # the steps after the spawn hold what the steps before it held.
+    mem = online["memory_after_step"]
+    spawn_step = QUAD_SUBMAP_SIZE - 1          # step k adds keyframe k + 1
+    before, after = mem[max(spawn_step - 2, 0)], mem[min(spawn_step + 2, len(mem) - 1)]
+    online["memory_before_after_spawn"] = [before, after]
+    log(f"  card memory allocated two frames before the spawn {before / 2 ** 20:.1f} MiB, "
+        f"two after {after / 2 ** 20:.1f} MiB; device pools of the mapping sequence "
+        f"{online['device_pools']}")
+    check(online["device_pools"] == 1, f"{online['device_pools']} device pools were built")
+    check(after <= before + 2 ** 20, f"the card holds {(after - before) / 2 ** 20:.1f} MiB more "
+          "after the spawn than before it")
+    # Per LM iteration 2 interp forwards, 2 points-only backwards and 1
+    # decode; per mapping step (features only: no stability in this config)
+    # 2 interp forwards, 2 table-gradient backwards, 1 decode.
+    m = cfg["mapping"]
+    tracked = QUAD_FRAMES - expected_submaps
+    lm_iters = tracked * cfg["tracking"]["lm_max_iter"]
+    map_steps = expected_submaps * m["init_iterations"] + tracked * m["iters_per_frame"]
+    want = dict(interp=2 * lm_iters + 2 * map_steps, interp_points_grad=2 * lm_iters,
+                interp_grad=2 * map_steps, decode=lm_iters + map_steps, fused=0,
+                interp_recompute_backward=0)
+    for name, n in want.items():
+        check(c[name] == n, f"quad run: {name} launched {c[name]} times, expected {n} "
+              f"({lm_iters} LM iterations, {map_steps} mapping steps)")
+    online.update(lm_iterations=lm_iters, map_steps=map_steps)
+
+    mesh_bound = (np.asarray(world_bound, np.float32)
+                  + np.array([-0.5, 0.5], np.float32))        # the demo's _mesh_bound
+    fused, cons = consolidate_and_compare(atlas, mesh_bound, counters)
+    log(f"  consolidated grid {cons['fused_shapes']} in {cons['seconds']:.2f} s ({card}; "
+        f"{cons['chunks']} chunks; launches {cons['launches']}); node features against the "
+        f"atlas query: max |diff| {cons['node_max_abs_err']:.3e}; fused-vs-atlas |dSDF| at "
+        f"{QUAD_COMPARE_POINTS} points: mean {cons['sdf_error']['mean_abs']:.3e}, p99 "
+        f"{cons['sdf_error']['p99_abs']:.3e}, max {cons['sdf_error']['max_abs']:.3e}")
+    mesh_pred, lattice = fused_mesh(fused, mesh_bound, counters)
+    t0 = time.perf_counter()
+    recon = mesh_reconstruction_metrics(mesh_pred, gt_sys, n_points=100000,
+                                        threshold=QUAD_FSCORE_THRESH)
+    lattice["metrics_s"] = time.perf_counter() - t0
+    # Where the fused mesh's surface lies: its vertices' signed distance to
+    # the GT, and the field where no grid reaches (zero features).
+    sd = gt_sys.signed_distance(np.asarray(mesh_pred.vertices, np.float32))
+    with torch.no_grad():
+        far = float(fused(torch.full((1, 3), 1e4, device=dev)))
+    lattice.update(vertex_sdf_median_m=float(np.median(sd)),
+                   vertices_within_thresh=float(np.mean(np.abs(sd) < QUAD_FSCORE_THRESH)),
+                   field_at_zero_features_m=far)
+    log(f"  fused mesh {QUAD_MESH_RESOLUTION}^3: {lattice['seconds']:.2f} s (lattice and marching "
+        f"cubes; {card}), {lattice['vertices']} vertices; at {QUAD_FSCORE_THRESH} m: F-score "
+        f"{recon['F-score (%)']:.3f} % (the JAX package's CPU run {JAX_QUAD_FSCORE:.3f} %), "
+        f"Chamfer_L1 {recon['Chamfer_L1 (cm)']:.3f} cm ({JAX_QUAD_CHAMFER_CM:.3f}); "
+        f"launches {lattice['launches']}")
+    log(f"  the fused mesh's vertices: median signed distance to the GT "
+        f"{lattice['vertex_sdf_median_m']:.3f} m, {100 * lattice['vertices_within_thresh']:.1f} % "
+        f"within {QUAD_FSCORE_THRESH} m; the field at zero features (no grid) "
+        f"{lattice['field_at_zero_features_m']:.4f} m")
+    check(recon["Chamfer_L1 (cm)"] < QUAD_MAX_CHAMFER_CM,
+          f"fused mesh Chamfer_L1 {recon['Chamfer_L1 (cm)']:.3f} cm not below "
+          f"{QUAD_MAX_CHAMFER_CM:.3f} cm (the JAX package's CPU run + 25 %)")
+    online.update(consolidation=cons, mesh=lattice, reconstruction=recon,
+                  sequences_s=seq_s, pretrain_s=pretrain_s)
+    return online
 
 
 def main() -> int:
@@ -1580,9 +2122,11 @@ def main() -> int:
     interp_errs, interp_times = phase_interp_kernels()
     decode_errs, decode_t = phase_decode_kernel()
     grad2_errs = phase_function_grads()
+    atlas_errs, atlas_times = phase_atlas_query()
     errs.update(interp_errs)
     errs.update(decode_errs)
     errs.update(grad2_errs)
+    errs.update(atlas_errs)
 
     log("phase 3: main path (bench.py's mapping train step: default decode, then fused)")
     main_report, fused_report = phase_main_path()
@@ -1591,24 +2135,39 @@ def main() -> int:
     mesh_report, mesh_errs = phase_mesh()
     errs.update(mesh_errs)
 
-    log("phase 5: online SLAM of one submap (demo/full_slam_scannet.py --synthetic)")
-    slam_report, slam_errs = phase_slam()
+    log("phase 5: SLAM on System and GridAtlas (demo/full_slam_scannet.py --synthetic)")
+    t0 = time.perf_counter()
+    slam_report, slam_errs = phase_slam(card)
+    slam_report["seconds"] = time.perf_counter() - t0
     errs.update(slam_errs)
 
-    log("phase 6: report")
+    log("phase 6: two-submap SLAM (demo/full_slam_newer_college.py --synthetic --scene quad "
+        f"--num_frames {QUAD_FRAMES} --submap_size {QUAD_SUBMAP_SIZE}), consolidation, mesh")
+    t0 = time.perf_counter()
+    quad_report = phase_quad(card)
+    quad_report["seconds"] = time.perf_counter() - t0
+
+    log("phase 7: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
                       "fused_kernel": times, "interp_kernels": interp_times,
-                      "decode_kernel": decode_t,
+                      "decode_kernel": decode_t, "atlas_query": atlas_times,
                       "main_path": main_report, "main_path_fused": fused_report,
-                      "mesh_path": mesh_report, "slam_path": slam_report}), flush=True)
+                      "mesh_path": mesh_report, "slam_path": slam_report,
+                      "quad_path": quad_report}), flush=True)
+
+    online, quad = slam_report["online"], quad_report
+    path_launches = [main_report["launches"], mesh_report["train_launches"],
+                     mesh_report["lattice_launches"], online["launches"],
+                     online["refine_launches"], online["mesh"]["launches"],
+                     slam_report["lm"]["launches"], quad["launches"],
+                     quad["consolidation"]["launches"], quad["mesh"]["launches"]]
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
-        default-decode run, phase 4's training and lattice, and phase 5's
-        online run and LM run."""
-        return (main_report["launches"][name] + mesh_report["train_launches"][name]
-                + mesh_report["lattice_launches"][name]
-                + slam_report["online"]["launches"][name] + slam_report["lm"]["launches"][name])
+        default-decode run, phase 4's training and lattice, phase 5's online
+        run, refinement, observed mesh and LM run, and phase 6's online run,
+        consolidation and fused mesh."""
+        return sum(c[name] for c in path_launches)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,

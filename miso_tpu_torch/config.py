@@ -166,7 +166,13 @@ def _register_builtins():
     def _grid_net(cfg, generator, device, **kw):
         return create_grid_net(cfg["model"], generator=generator, device=device, **kw)
 
-    MODEL_REGISTRY["grid_atlas"] = _not_ported("GridAtlas", "item 3 (atlas + fusion)")
+    @register_model("grid_atlas")
+    def _grid_atlas(cfg, generator, device, **kw):
+        from miso_tpu_torch.models.grid_atlas import GridAtlas
+        sys_cfg = cfg.get("system", {})
+        return GridAtlas(cfg["model"], max_kfs_per_submap=sys_cfg.get("submap_size", 1),
+                         capacity=sys_cfg.get("submap_capacity"), device=device)
+
     for name, what in (("isdf", "iSDF"), ("pointsdf", "PointSDF"), ("ngp", "HashGrid")):
         MODEL_REGISTRY[name] = _not_ported(what, "item 6 (alternative models and grids)")
 
@@ -207,7 +213,7 @@ def _register_builtins():
     LOSS_REGISTRY["Sdf2D"] = _not_ported("The Sdf2D loss", "item 6 (2D grids)")
     LOSS_REGISTRY["PosedSdf3D"] = _not_ported("posed_sdf_loss_3d", "item 2")
     for name in ("PosedSdf3DSubmap", "MisoFusion", "iSDF", "iSDFSubmap"):
-        LOSS_REGISTRY[name] = _not_ported(f"The {name} loss", "item 3 (atlas + fusion)")
+        LOSS_REGISTRY[name] = _not_ported(f"The {name} loss", "item 4 (alignment + fusion)")
 
     # -- datasets ----------------------------------------------------------
     @register_dataset("Sdf3D")

@@ -1,6 +1,7 @@
-"""Carry a JAX GridNet's arrays into the port's GridNet.
+"""Carry a JAX GridNet's or GridAtlasParams' arrays into the port's.
 
-``arrays`` holds the leaves of a ``miso_tpu`` GridNet as numpy arrays:
+For :func:`grid_net_from_numpy`, ``arrays`` holds the leaves of a
+``miso_tpu`` GridNet as numpy arrays:
 
   features      per-level (X, Y, Z, F) grids
   stability     per-level (X, Y, Z, 1) grids
@@ -13,6 +14,9 @@
 
 The static settings (cell sizes, pos_invariant, decoder.fix, decoder.impl)
 come from ``cfg_model``, the same config dict the JAX model was built from.
+:func:`grid_atlas_params_from_numpy` takes the leaves of a JAX
+``GridAtlasParams`` under their field names, feature and stability levels in
+its folded ``(S, g0, g1*g2*C)`` storage, with its static ``pad_spatial``.
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from miso_tpu_torch.models.grid_atlas import GridAtlasParams
 from miso_tpu_torch.models.grid_net import GridNet, _check_device, _settings
 
 
@@ -44,3 +49,32 @@ def grid_net_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> GridNet
         anchor_kf=int(np.asarray(arrays.get("anchor_kf", 0))),
         optimize_pose=bool(pcfg.get("optimize", False)),
         **_settings(cfg_model))
+
+
+def grid_atlas_params_from_numpy(arrays: Dict, cfg_model: Dict, num_submaps: int,
+                                 device="cuda") -> GridAtlasParams:
+    """The port's atlas params from a JAX atlas's arrays; ``num_submaps`` is
+    the live slot count (the JAX wrapper's ``num_submaps``)."""
+    device = _check_device(device)
+
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+
+    def unfold(levels, channels):
+        return [t(a).reshape(a.shape[0], *pad, channels)
+                for a, pad in zip(levels, arrays["pad_spatial"])]
+
+    fdim = int(cfg_model["grid"]["feature_dim"])
+    decoder = arrays.get("decoder")
+    settings = _settings(cfg_model)
+    return GridAtlasParams(
+        unfold(arrays["features"], fdim), unfold(arrays["stability"], 1),
+        None if decoder is None else tuple((t(W), t(b)) for W, b in decoder),
+        **{k: t(arrays[k]) for k in (
+            "sub_rot_corr", "sub_trans_corr", "Rws", "tws", "kf_rot_corr",
+            "kf_trans_corr", "Rsk", "tsk", "bounds", "ignore_level", "active",
+            "kf_to_submap", "kf_to_local")},
+        sizes=[t(a) for a in arrays["sizes"]], num_submaps=num_submaps,
+        cell_sizes=settings["cell_sizes"], pos_invariant=settings["pos_invariant"],
+        decoder_fixed=bool(arrays.get("decoder_fixed", settings["decoder_fixed"])),
+        decode_impl=settings["decode_impl"])

@@ -220,6 +220,26 @@ def _check_device(device) -> torch.device:
     return device
 
 
+def decoder_from_config(cfg_model: Dict, generator: Optional[torch.Generator] = None,
+                        dtype=torch.float32, device="cuda"):
+    """The decoder of ``cfg_model['decoder']`` as ((W, b), ...) on ``device``:
+    drawn from ``generator``, then replaced by its ``pretrained_model`` file
+    when one is named; None when the config has no MLP decoder."""
+    dcfg = cfg_model.get("decoder", {"type": "none"})
+    if dcfg.get("type", "none") != "mlp":
+        return None
+    g = cfg_model["grid"]
+    in_dim = int(g["n_levels"]) * int(g["feature_dim"]) \
+        + (0 if bool(dcfg.get("pos_invariant", True)) else 3)
+    decoder = mlp_init(in_dim, int(dcfg["out_dim"]), int(dcfg["hidden_dim"]),
+                       int(dcfg["hidden_layers"]), bias=True,
+                       generator=generator, dtype=dtype, device=device)
+    if dcfg.get("pretrained_model"):
+        from miso_tpu_torch.train.checkpoint import load_pytree
+        decoder = load_pytree(dcfg["pretrained_model"], like=decoder)
+    return decoder
+
+
 def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None,
                     optimize_pose: Optional[bool] = None,
                     initial_features: Optional[Dict[int, torch.Tensor]] = None,
@@ -234,7 +254,6 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
     device = _check_device(device)
     g = cfg_model["grid"]
     settings = _settings(cfg_model)
-    dcfg = cfg_model.get("decoder", {"type": "none"})
     pcfg = cfg_model.get("pose", {"num_poses": 1, "optimize": False})
     feat_dtype = getattr(torch, g["feature_dtype"]) if "feature_dtype" in g else dtype
     bound_t = torch.as_tensor(bound if bound is not None else g["bound"],
@@ -259,17 +278,7 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
         features.append(f.to(device))
         stability.append(torch.zeros((*shape, 1), dtype=feat_dtype, device=device))
 
-    decoder = None
-    if dcfg.get("type", "none") == "mlp":
-        n_levels = len(settings["cell_sizes"])
-        in_dim = n_levels * fdim + (0 if settings["pos_invariant"] else 3)
-        decoder = mlp_init(in_dim, int(dcfg["out_dim"]), int(dcfg["hidden_dim"]),
-                           int(dcfg["hidden_layers"]), bias=True,
-                           generator=generator, dtype=dtype, device=device)
-        if dcfg.get("pretrained_model"):
-            from miso_tpu_torch.train.checkpoint import load_pytree
-            decoder = load_pytree(dcfg["pretrained_model"], like=decoder)
-
+    decoder = decoder_from_config(cfg_model, generator, dtype, device)
     K = int(num_poses if num_poses is not None else pcfg.get("num_poses", 1))
     opt_pose = bool(optimize_pose if optimize_pose is not None
                     else pcfg.get("optimize", False))

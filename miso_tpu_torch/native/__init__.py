@@ -193,7 +193,10 @@ class TriangleMesh:
         return t, tri
 
     def sample_surface(self, n: int, seed: int = 0, return_normals: bool = False):
-        """n area-weighted surface samples (and their face normals)."""
+        """n area-weighted surface samples (and their face normals).  Raises
+        on a mesh with no triangles (the native sampler has none to pick)."""
+        if len(self.triangles) == 0:
+            raise ValueError("sample_surface of a mesh with no triangles")
         pts = np.empty((n, 3), np.float32)
         nrm = np.empty((n, 3), np.float32)
         self._lib.mn_sample_surface(self._handle, n, seed, _fp(pts), _fp(nrm))

@@ -1,0 +1,201 @@
+"""Timing and profiling (port of ``miso_tpu/utils/profiling.py``).
+
+Wall and process timers that synchronize the card before reading the clock,
+the SLAM loop's per-frame stage breakdown, a ``torch.profiler`` trace
+context with the per-step kernel and operator tables read from it, and a
+CUDA-event timer for one callable.
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+import time
+from collections import defaultdict
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+
+def synchronize(target: Any = None):
+    """Wait for the card's queued work: a no-op for CPU tensors; ``target``
+    is a tensor (its device), a device, or None (every CUDA device in use)."""
+    if not torch.cuda.is_available():
+        return
+    if isinstance(target, torch.Tensor):
+        if target.is_cuda:
+            torch.cuda.synchronize(target.device)
+        return
+    if isinstance(target, torch.device):
+        if target.type == "cuda":
+            torch.cuda.synchronize(target)
+        return
+    torch.cuda.synchronize()
+
+
+class PerfTimer:
+    """check() returns (cpu_time, wall_time) in seconds since the last reset,
+    after synchronizing ``sync`` (as :func:`synchronize` takes it)."""
+
+    def __init__(self, activate: bool = True):
+        self.activate = activate
+        self.reset()
+
+    def reset(self):
+        self._cpu0 = time.process_time()
+        self._wall0 = time.perf_counter()
+
+    def check(self, sync: Any = None):
+        if not self.activate:
+            return 0.0, 0.0
+        if sync is not None:
+            synchronize(sync)
+        return (time.process_time() - self._cpu0,
+                time.perf_counter() - self._wall0)
+
+
+class StageProfiler:
+    """Per-frame, per-stage wall-clock breakdown of the SLAM loop.
+
+    Each frame accumulates named stage durations; a stage waits for its
+    ``sync`` target (a tensor, a device, or a callable returning one) before
+    it reads the clock.  ``summary()`` reports each stage's median, mean and
+    p90 over frames, and the frame's total (``*_sample`` host-sampling
+    entries excluded: they lie inside their stages).
+    """
+
+    def __init__(self):
+        self.frames = []
+        self._cur: Optional[Dict] = None
+
+    def start_frame(self, frame: int):
+        self._cur = {"frame": frame}
+
+    def add(self, name: str, dt: float):
+        if self._cur is not None:
+            self._cur[name] = self._cur.get(name, 0.0) + dt
+
+    @contextlib.contextmanager
+    def stage(self, name: str, sync: Any = None):
+        if self._cur is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if sync is not None:
+                synchronize(sync() if callable(sync) else sync)
+            self.add(name, time.perf_counter() - t0)
+
+    def mark(self, name: str):
+        if self._cur is not None:
+            self._cur[name] = True
+
+    def end_frame(self):
+        if self._cur is not None:
+            self.frames.append(self._cur)
+            self._cur = None
+
+    def summary(self) -> Dict:
+        keys = set()
+        for f in self.frames:
+            keys.update(k for k, v in f.items() if k != "frame" and isinstance(v, float))
+        out: Dict = {"n_frames": len(self.frames)}
+        totals = [sum(v for k, v in f.items() if k != "frame" and isinstance(v, float)
+                      and not k.endswith("_sample")) for f in self.frames]
+        if totals:
+            out["frame_ms"] = _stats(totals)
+        for k in sorted(keys):
+            out[k + "_ms"] = _stats([f.get(k, 0.0) for f in self.frames])
+        return out
+
+
+def _stats(seconds):
+    ms = 1e3 * np.asarray(seconds, np.float64)
+    return {"median": float(np.median(ms)), "mean": float(np.mean(ms)),
+            "p90": float(np.percentile(ms, 90))}
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str] = None):
+    """A ``torch.profiler`` trace of the CPU and, where there is one, the
+    card; with ``log_dir`` also written there as a Chrome trace
+    (``trace.json``).  Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    if log_dir is not None:
+        os.makedirs(log_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
+    """Time ``run(steps)`` unprofiled, then under :func:`device_trace`, and
+    print the card's kernels and the aten operators by device time per step.
+    The idle share is the part of the unprofiled window in which no kernel
+    or copy ran.  Returns the step's wall ms (unprofiled and profiled),
+    device ms and idle share."""
+    t0 = time.perf_counter()
+    run(steps)
+    synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with device_trace() as prof:
+        t0 = time.perf_counter()
+        run(steps)
+        synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+
+    per_name = defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            rec = per_name[e.name]
+            rec[0] += e.time_range.elapsed_us() / 1e3 / steps
+            rec[1] += 1
+    device_ms = sum(v[0] for v in per_name.values())
+    idle = max(0.0, 1.0 - device_ms / plain_wall_ms)
+    print(f"== {label}: {steps} steps; wall {plain_wall_ms:.3f} ms/step unprofiled, "
+          f"{wall_ms:.3f} profiled (host clock); device {device_ms:.3f} ms/step "
+          f"summed over kernels; idle share {idle:.3f} of the unprofiled window")
+    print(f"{'ms/step':>9} {'share':>6} {'calls/step':>10}  kernel")
+    for name, (ms, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
+        print(f"{ms:9.4f} {ms / device_ms:6.3f} {calls / steps:10.1f}  {name[:110]}")
+    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
+    print(f"{'ms/step':>9} {'calls/step':>10}  operator (self device time)")
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"{e.self_device_time_total / 1e3 / steps:9.4f} {e.count / steps:10.1f}  "
+              f"{e.key}")
+    return dict(wall_ms=plain_wall_ms, profiled_wall_ms=wall_ms, device_ms=device_ms,
+                idle_share=idle, steps=steps)
+
+
+def time_jitted(fn, *args, iters: int = 20, warmup: int = 2, **kwargs) -> Dict:
+    """Time ``fn(*args, **kwargs)`` call by call: CUDA events around each
+    call on the card, the synchronized host clock otherwise.  Returns
+    {'mean_ms', 'best_ms', 'iters'}."""
+    on_card = torch.cuda.is_available() and any(
+        isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kwargs.values()))
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    times = []
+    if on_card:
+        torch.cuda.synchronize()
+        for _ in range(iters):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+    else:
+        for _ in range(iters):
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            times.append(1e3 * (time.perf_counter() - t0))
+    return {"mean_ms": float(sum(times) / len(times)), "best_ms": float(min(times)),
+            "iters": iters}

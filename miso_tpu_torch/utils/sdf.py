@@ -21,7 +21,11 @@ import torch
 
 
 def _query_device(query_func) -> torch.device:
-    """The device of a query's tensors: its ``bound`` (GridNet, ObservedQuery)."""
+    """The device of a query's tensors: its ``device`` (an atlas's params, an
+    ObservedQuery), else its ``bound``'s (GridNet), else the card."""
+    device = getattr(query_func, "device", None)
+    if isinstance(device, torch.device):
+        return device
     bound = getattr(query_func, "bound", None)
     if isinstance(bound, torch.Tensor):
         return bound.device
@@ -46,8 +50,10 @@ def extract_fields(query_func: Callable, bound, resolution: int,
     """Evaluate an SDF on a resolution^3 lattice spanning ``bound``.
 
     Lattice nodes are linspace(bound_min, bound_max, resolution) per axis.
-    ``query_func`` maps (N, 3) points to (N, 1) values; it runs on
-    ``device`` (default: the device of ``query_func.bound``, else the card).
+    ``query_func`` maps (N, 3) points to (N, 1) values (a GridNet, an
+    atlas's ``GridAtlasParams``, an ``ObservedQuery`` of either); it runs on
+    ``device`` (default: the query's own, else the card), under
+    ``torch.no_grad()``.
     Returns a (res, res, res) float32 numpy array.
     """
     device = torch.device(device) if device is not None else _query_device(query_func)
@@ -108,6 +114,10 @@ class ObservedQuery:
     @property
     def bound(self):
         return self.model.bound
+
+    @property
+    def device(self) -> torch.device:
+        return _query_device(self.model)
 
     def __call__(self, x):
         sdf = self.model(x)[:, :1]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's steps spend their device time, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [mapping|mesh|slam|all] [--steps N] [--root DIR]
+    python3 scripts/profile_torch_step.py [mapping|mesh|slam|multisubmap|all] [--steps N]
+                                          [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
 step (ScanNet widths, 1e6-point batches, masked Adam), first with
@@ -18,11 +19,17 @@ points per batch, GridTrainer with tsdf_loss_3d and the autograd eikonal,
 default decode): 20 warm-up epochs, 20 unprofiled, 20 profiled; then the
 192^3 lattice of extract_fields once unprofiled and once profiled.
 
-``slam``: chip_smoke.py's online SLAM of one submap (phase 5's sequence,
-config and pretrained decoder): after the init burst and 2 warm-up frames, N
+``slam``: chip_smoke.py phase 5's online SLAM of one submap (System on a
+GridAtlas with one live slot; phase 5's sequence, config and pretrained
+decoder): after the init burst and 2 warm-up frames, N
 whole frames (odometry, Adam tracking, mapping burst), then the tracking of
 one frame and one mapping burst apart, N times each, then LM tracking of one
 frame with configs/lidar/ncd_quad.yaml's settings, N times.
+
+``multisubmap``: chip_smoke.py phase 6's two-submap quad run (System on a
+GridAtlas, LM tracking, separate tracking and mapping sequences): after the
+second submap's spawn and 2 warm-up frames, N whole frames, then its LM
+tracking of one frame and one mapping burst apart, N times each.
 
 For each window it prints the card, the wall time per step (host clock,
 synchronised) unprofiled and profiled, the device time per step summed over
@@ -34,52 +41,26 @@ numpy, chip_smoke and miso_tpu_torch.
 import argparse
 import os
 import sys
-import time
-from collections import defaultdict
 
+import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-TOP = 25
+
+def _load_breakdown():
+    """utils/profiling.py::breakdown of this checkout, loaded as a file of its
+    own so that ``--root`` swaps only the package that is measured."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "_profiling", os.path.join(ROOT, "miso_tpu_torch", "utils", "profiling.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.breakdown
 
 
-def breakdown(label, run, steps):
-    """Time ``run(steps)`` unprofiled, then profiled, and print the kernel and
-    operator tables per step."""
-    t0 = time.perf_counter()
-    run(steps)
-    torch.cuda.synchronize()
-    plain_wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run(steps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    per_name = defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            rec = per_name[e.name]
-            rec[0] += e.time_range.elapsed_us() / 1e3 / steps
-            rec[1] += 1
-    device_ms = sum(v[0] for v in per_name.values())
-    print(f"== {label}: {steps} steps; wall {plain_wall_ms:.3f} ms/step unprofiled, "
-          f"{wall_ms:.3f} profiled (host clock); device {device_ms:.3f} ms/step "
-          f"summed over kernels; idle share "
-          f"{max(0.0, 1.0 - device_ms / plain_wall_ms):.3f} of the unprofiled window")
-    print(f"{'ms/step':>9} {'share':>6} {'calls/step':>10}  kernel")
-    for name, (ms, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:TOP]:
-        print(f"{ms:9.4f} {ms / device_ms:6.3f} {calls / steps:10.1f}  {name[:110]}")
-    ops = [e for e in prof.key_averages() if e.key.startswith("aten::")]
-    print(f"{'ms/step':>9} {'calls/step':>10}  operator (self device time)")
-    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:TOP]:
-        print(f"{e.self_device_time_total / 1e3 / steps:9.4f} {e.count / steps:10.1f}  "
-              f"{e.key}")
-
+breakdown = _load_breakdown()
 
 def profile_mapping(chip_smoke, impl, steps):
     from miso_tpu_torch.losses.miso import make_loss, mapping_loss
@@ -144,12 +125,48 @@ def profile_mesh(chip_smoke):
     breakdown("extract_fields, 192^3 lattice (one call per step)", lattice, 1)
 
 
+def _profile_system(system, steps, points):
+    """N whole frames of ``system``, then the tracking of one frame and one
+    mapping burst apart, N times each."""
+    from miso_tpu_torch.slam.submap_slam import replay_window
+
+    def frames(n):
+        for _ in range(n):
+            system.step()
+
+    def track(n):
+        for _ in range(n):
+            system.tracker.track(system.current_kf_id())
+
+    def mapping(n):
+        kfs = replay_window(system.first_frame_in_submap, system.current_kf_id(),
+                            system.max_replay_frames, system.max_replay_freq)
+        for _ in range(n):
+            system.mapper.mapping(kfs, iterations=system.map_iters,
+                                  level_iterations=system.map_level_iters)
+
+    atlas = system.model
+    tracking = system.cfg["tracking"]
+    solve = (f"LM tracking: {tracking['lm_max_iter']} iterations" if tracking["solver"] == "lm"
+             else "Adam tracking: 15 steps")
+    burst = f"{system.map_iters} steps of 11 x {points}"
+    breakdown(f"one frame of submap {atlas.curr_submap_id} ({atlas.num_submaps} live of "
+              f"{atlas.params.capacity} slots; odometry, {solve} of {points} points, "
+              f"mapping burst: {burst})", frames, steps)
+    breakdown(f"{solve} of {points} points, one frame", track, steps)
+    breakdown(f"one mapping burst ({burst} points)", mapping, steps)
+
+
 def profile_slam(chip_smoke, steps):
+    """chip_smoke.py phase 5's run on System and a GridAtlas (one live slot):
+    after the init burst and 2 warm-up frames, N whole frames, the Adam
+    tracking of one frame and one mapping burst apart, then LM tracking of
+    one frame with configs/lidar/ncd_quad.yaml's settings."""
     import tempfile
 
     from miso_tpu_torch.config import load_config
-    from miso_tpu_torch.models.grid_net import create_grid_net
-    from miso_tpu_torch.slam.submap_slam import SubmapSlam, replay_window
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.system import System
     from miso_tpu_torch.slam.tracker import Tracker
     from miso_tpu_torch.train.checkpoint import save_pytree
 
@@ -157,46 +174,54 @@ def profile_slam(chip_smoke, steps):
     mesh, ds = chip_smoke.slam_sequence()
     cfg = chip_smoke.slam_config()
     cfg["system"]["profile"] = False
+    if 2 + 2 * steps >= ds.num_kfs:
+        raise ValueError(f"--steps {steps}: the sequence has {ds.num_kfs} frames")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "decoder.npz")
         save_pytree(path, chip_smoke.pretrain_decoder(mesh, cfg["model"], dev))
         cfg["model"]["decoder"].update({"fix": True, "pretrained_model": path})
-        grid = create_grid_net(cfg["model"], bound=cfg["system"]["submap_local_bound"],
-                               num_poses=cfg["system"]["submap_size"],
-                               generator=torch.Generator().manual_seed(0), device=dev)
-    if 2 + 2 * steps >= ds.num_kfs:
-        raise ValueError(f"--steps {steps}: the sequence has {ds.num_kfs} frames")
-    slam = SubmapSlam(grid, ds, ds, cfg, *ds.noisy_kf_pose_in_world(0))
-
-    def frames(n):
-        for _ in range(n):
-            slam.step()
-
-    def track(n):
-        for _ in range(n):
-            slam.tracker.track(slam.curr_kf)
-
-    def mapping(n):
-        kfs = replay_window(0, slam.curr_kf, slam.max_replay_frames, slam.max_replay_freq)
-        for _ in range(n):
-            slam.mapper.mapping(kfs, iterations=slam.map_iters,
-                                level_iterations=slam.map_level_iters)
+        atlas = GridAtlas(cfg["model"], max_kfs_per_submap=cfg["system"]["submap_size"],
+                          capacity=cfg["system"]["submap_capacity"], device=dev)
+        system = System(atlas, ds, ds, cfg, *ds.noisy_kf_pose_in_world(0), verbose=False)
+    system.run(max_frames=3)
+    torch.cuda.synchronize()
+    _profile_system(system, steps, ds.frame_batchsize)
 
     lidar = load_config(os.path.join(ROOT, "configs", "lidar", "ncd_quad.yaml"))
-    lm_tracker = Tracker(slam.grid, ds, {"tracking": lidar["tracking"]})
+    lm_tracker = Tracker(system.tracker.grid, ds, {"tracking": lidar["tracking"]})
 
     def lm(n):
         for _ in range(n):
-            lm_tracker.track_lm(slam.curr_kf)
+            lm_tracker.track_lm(system.current_kf_id())
 
-    frames(2)
-    torch.cuda.synchronize()
-    breakdown("one SLAM frame (odometry, Adam tracking: 15 steps of 4096 points, "
-              "mapping burst: 15 steps of 11 x 4096)", frames, steps)
-    breakdown("Adam tracking of one frame (15 steps of 4096 points)", track, steps)
-    breakdown("one mapping burst (15 steps of 11 x 4096 points)", mapping, steps)
     lm(2)
-    breakdown("LM tracking of one frame (10 iterations of 4096 points)", lm, steps)
+    breakdown(f"LM tracking of one frame ({lidar['tracking']['lm_max_iter']} iterations of "
+              f"{ds.frame_batchsize} points)", lm, steps)
+
+
+def profile_multisubmap(chip_smoke, steps):
+    """chip_smoke.py phase 6's quad run on System and GridAtlas: after the
+    second submap's spawn and 2 warm-up frames, N whole frames (odometry, LM
+    tracking, mapping burst, pose sync), then the LM tracking of one frame and
+    one mapping burst apart, N times each."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.system import System
+
+    dev = torch.device("cuda")
+    mesh, _, ds_track, ds_map, cfg, _ = chip_smoke.quad_setup()
+    cfg["system"]["profile"] = False
+    decoder = chip_smoke.pretrain_decoder(mesh, cfg["model"], dev, trunc_dist=0.5)
+    atlas = GridAtlas(cfg["model"], max_kfs_per_submap=cfg["system"]["submap_size"],
+                      capacity=cfg["system"]["submap_capacity"], device=dev)
+    atlas.set_decoder(decoder, fixed=True)
+    R0, t0 = np.eye(3, dtype=np.float32), ds_track.noisy_kf_pose_in_world(0)[1]
+    system = System(atlas, ds_track, ds_map, cfg, R0, t0, verbose=False)
+    first = cfg["system"]["submap_size"] + 3
+    if first + 2 * steps > ds_track.num_kfs:
+        raise ValueError(f"--steps {steps}: the sequence has {ds_track.num_kfs} frames")
+    system.run(max_frames=first)
+    torch.cuda.synchronize()
+    _profile_system(system, steps, ds_map.frame_batchsize)
 
 
 def main() -> int:
@@ -205,7 +230,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="?", default="mapping",
-                    choices=("mapping", "mesh", "slam", "all"))
+                    choices=("mapping", "mesh", "slam", "multisubmap", "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -223,6 +248,8 @@ def main() -> int:
         profile_mesh(chip_smoke)
     if which in ("slam", "all"):
         profile_slam(chip_smoke, args.steps)
+    if which in ("multisubmap", "all"):
+        profile_multisubmap(chip_smoke, args.steps)
     return 0
 
 

@@ -116,7 +116,7 @@ def test_cfg_loss_matches_jax(name):
 
 
 @pytest.mark.parametrize("kind,name", [
-    ("model", "grid_atlas"), ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
+    ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
     ("loss", "Sdf2D"), ("loss", "PosedSdf3D"), ("loss", "PosedSdf3DSubmap"),
     ("loss", "MisoFusion"), ("loss", "iSDF"), ("loss", "iSDFSubmap"),
     ("dataset", "Sdf2D"), ("dataset", "PosedSdf3D"), ("dataset", "PosedSdf3DLidar"),
@@ -132,6 +132,19 @@ def test_unported_entries_raise(kind, name):
     with pytest.raises(ValueError, match="Unknown"):
         cfg[kind]["name"] = "no_such_entry"
         build()
+
+
+def test_cfg_model_builds_the_atlas():
+    """``model.name: grid_atlas`` builds an empty GridAtlas with the system's
+    submap size and capacity, as the JAX registry does."""
+    cfg = _scannet()
+    cfg["model"]["name"] = "grid_atlas"
+    cfg["system"].update({"submap_size": 7, "submap_capacity": 3})
+    atlas = t_config.cfg_model(cfg, device="cpu")
+    ref = j_config.cfg_model(cfg, jax.random.PRNGKey(0))
+    assert type(atlas).__name__ == type(ref).__name__ == "GridAtlas"
+    assert (atlas.max_kfs, atlas.capacity, atlas.num_submaps) == \
+        (ref.max_kfs, ref.capacity, ref.num_submaps) == (7, 3, 0)
 
 
 def test_cfg_model_defaults_to_the_card():

@@ -394,3 +394,98 @@ def test_lm_step_launches(dev):
     assert grid_interpolate_grad_cuda.launches == 0
     for a, b in ((model.rot_corr, cpu.rot_corr), (model.trans_corr, cpu.trans_corr)):
         torch.testing.assert_close(a.detach().cpu(), b.detach(), atol=1e-4, rtol=1e-3)
+
+
+def _atlas(device, capacity=4):
+    """3 live submaps of mixed bounds (two padded), random features,
+    stability and pose corrections, a 8 -> 32 -> 1 decoder."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.0,
+                    "bound": SCANNET_BOUND, "base_cell_size": 0.5, "per_level_scale": 5.0,
+                    "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": True, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 2}}
+    atlas = GridAtlas(cfg, max_kfs_per_submap=2, capacity=capacity, device=device)
+    for bound, shift in ((SCANNET_BOUND, [0.0, 0.0, 0.0]),
+                         ([[-0.02, 6.38], [-0.01, 5.24], [-0.01, 3.03]], [2.0, 1.0, 0.0]),
+                         ([[-1.0, 7.0], [-2.0, 2.5], [-0.5, 2.0]], [-1.0, 3.0, 0.2])):
+        atlas.add_submap(np.asarray(bound, np.float32), tws=np.asarray(shift, np.float32))
+        atlas.add_kf()
+    gen = torch.Generator(device=device).manual_seed(3)
+    p = atlas.params
+    with torch.no_grad():
+        for f in p.features:
+            f[:3] = 0.1 * torch.randn(f[:3].shape, generator=gen, device=device)
+        for s in p.stability:
+            s[:3] = torch.rand(s[:3].shape, generator=gen, device=device)
+        p.sub_rot_corr[:3] = 0.02 * torch.randn((3, 3), generator=gen, device=device)
+        p.sub_trans_corr[:3] = 0.02 * torch.randn((3, 3), generator=gen, device=device)
+    return atlas
+
+
+def test_atlas_queries_match_the_plain_ops_on_the_cpu(dev):
+    """query_feature, query_stability, __call__ and the per-submap queries on
+    the card (interp and decode kernels on padded slots with logical sizes)
+    against the same atlas on the CPU (plain ops)."""
+    atlas = _atlas(dev)
+    cpu = copy.deepcopy(atlas.params)
+    for name in ("features", "stability", "sizes"):
+        setattr(cpu, name, [t.cpu() for t in getattr(cpu, name)])
+    for name in ("sub_rot_corr", "sub_trans_corr", "Rws", "tws", "kf_rot_corr",
+                 "kf_trans_corr", "Rsk", "tsk", "bounds", "ignore_level", "active",
+                 "kf_to_submap", "kf_to_local"):
+        setattr(cpu, name, getattr(cpu, name).cpu())
+    cpu.decoder = tuple((W.cpu(), b.cpu()) for W, b in cpu.decoder)
+    b = atlas.global_bound()
+    x = torch.from_numpy(np.random.default_rng(4).uniform(
+        b[:, 0] - 0.5, b[:, 1] + 0.5, (200_000, 3)).astype(np.float32))
+    with torch.no_grad():
+        for name in ("query_feature", "query_stability", "forward"):
+            torch.testing.assert_close(getattr(atlas.params, name)(x.to(dev)).cpu(),
+                                       getattr(cpu, name)(x), atol=1e-4, rtol=1e-4)
+        for s in range(3):
+            for name in ("query_feature_submap", "query_stability_submap", "forward_submap"):
+                torch.testing.assert_close(getattr(atlas.params, name)(s, x.to(dev)).cpu(),
+                                           getattr(cpu, name)(s, x), atol=1e-4, rtol=1e-4)
+
+
+def test_atlas_query_launches_per_live_slot(dev):
+    """One interp forward per live slot and level (not per capacity slot), one
+    decode per __call__, no backward."""
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
+    atlas = _atlas(dev, capacity=8)
+    assert atlas.params.capacity == 8 and atlas.num_submaps == 3
+    x = torch.rand((4096, 3), device=dev) * 8.0
+    for name, interp, decode in (("query_feature", 6, 0), ("query_stability", 6, 0),
+                                 ("forward", 6, 1)):
+        grid_interpolate_cuda.launches = mlp_decode_cuda.launches = 0
+        grid_interpolate_grad_cuda.launches = grid_interpolate_grad_cuda.points_launches = 0
+        with torch.no_grad():
+            getattr(atlas.params, name)(x)
+        assert (grid_interpolate_cuda.launches, mlp_decode_cuda.launches) == (interp, decode)
+        assert grid_interpolate_grad_cuda.launches == 0
+        assert grid_interpolate_grad_cuda.points_launches == 0
+
+
+def test_atlas_get_submap_returns_contiguous_copies(dev):
+    """get_submap crops each padded slot into a contiguous copy (the kernels
+    take it as it is); training it leaves the atlas alone until set_submap."""
+    atlas = _atlas(dev)
+    for s in range(3):
+        g = atlas.get_submap(s)
+        for level, (f, st) in enumerate(zip(g.features, g.stability)):
+            assert f.is_cuda and f.is_contiguous() and st.is_contiguous()
+            assert tuple(f.shape[:3]) == tuple(atlas.submap_shapes(s)[level])
+            assert f.data_ptr() != atlas.params.features[level].data_ptr()
+            crop = tuple(slice(0, n) for n in f.shape[:3])
+            assert torch.equal(f, atlas.params.features[level][s][crop])
+        x = torch.rand((1000, 3), device=dev) * 3.0
+        torch.testing.assert_close(g(x), atlas.params.forward_submap(s, x),
+                                   atol=1e-5, rtol=1e-5)
+        before = atlas.params.features[1][s].clone()
+        with torch.no_grad():
+            g.features[1].add_(1.0)
+        assert torch.equal(atlas.params.features[1][s], before)

@@ -84,3 +84,16 @@ def test_se3_helpers_match_jax():
             close(a, b, TOL)
     close(se3.pose_matrix(t(R1[2]), t(t1[2])), j_se3.pose_matrix(R1[2], t1[2]), TOL)
     close(se3.aabb(t(t2), 0.5), j_se3.aabb(t2, 0.5), TOL)
+
+
+def test_metrics_of_an_empty_mesh_raise():
+    """A mesh with no triangles (an observed query that masks everything)
+    raises in sample_surface instead of crashing the native sampler."""
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.native import TriangleMesh
+    empty = TriangleMesh(np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int32))
+    with pytest.raises(ValueError, match="no triangles"):
+        empty.sample_surface(10)
+    gt = TriangleMesh(*room_scene(3.0))
+    with pytest.raises(ValueError, match="no triangles"):
+        t_eval.mesh_reconstruction_metrics(empty, gt, n_points=100)
