@@ -157,6 +157,7 @@ def _register_builtins():
         return
     _BUILTINS_DONE = True
 
+    from miso_tpu_torch.losses.fusion import fusion_loss, posed_sdf_loss_3d_submap
     from miso_tpu_torch.losses.miso import make_loss, mapping_loss, tracking_loss
     from miso_tpu_torch.losses.sdf import sdf_loss_3d, tsdf_loss_3d
     from miso_tpu_torch.models.grid_net import create_grid_net
@@ -211,9 +212,36 @@ def _register_builtins():
                          eik_trunc_dist=c.get("eik_trunc_dist", 0.1))
 
     LOSS_REGISTRY["Sdf2D"] = _not_ported("The Sdf2D loss", "item 6 (2D grids)")
+    @register_loss("PosedSdf3DSubmap")
+    def _posed_submap(cfg):
+        c = cfg["loss"]
+        return make_loss(posed_sdf_loss_3d_submap,
+                         sdf_weight=c.get("sdf_weight", 3e3),
+                         sign_weight=c.get("sign_weight", 1e2),
+                         smooth_weight=c.get("smooth_weight", 0.0),
+                         smooth_std=c.get("smooth_std", 0.1),
+                         trunc_dist=c.get("trunc_dist", 0.15),
+                         grad_method=c.get("grad_method", "finitediff"),
+                         finite_diff_eps=c.get("finite_diff_eps", 1e-2),
+                         loss_type=c.get("type", "L2"),
+                         pose_reg_weight=c.get("pose_reg_weight", 0.0))
+
+    @register_loss("MisoFusion")
+    def _fusion(cfg):
+        c = cfg.get("mapping", cfg.get("loss", {}))
+        return make_loss(fusion_loss, loss_type=c.get("loss_type", "L1"),
+                         weight_sdf=c.get("weight_sdf", 1.0),
+                         weight_eik=c.get("weight_eik", 0.0),
+                         weight_fs=c.get("weight_fs", 0.0),
+                         trunc_dist=c.get("trunc_dist", 0.15),
+                         finite_diff_eps=c.get("finite_diff_eps", 1e-2),
+                         grad_method=c.get("grad_method", "finitediff"),
+                         eik_trunc_dist=c.get("eik_trunc_dist", 0.1))
+
     LOSS_REGISTRY["PosedSdf3D"] = _not_ported("posed_sdf_loss_3d", "item 2")
-    for name in ("PosedSdf3DSubmap", "MisoFusion", "iSDF", "iSDFSubmap"):
-        LOSS_REGISTRY[name] = _not_ported(f"The {name} loss", "item 4 (alignment + fusion)")
+    for name in ("iSDF", "iSDFSubmap"):
+        LOSS_REGISTRY[name] = _not_ported(f"The {name} loss",
+                                          "item 2 (losses/isdf_loss.py, with train/local_opt.py)")
 
     # -- datasets ----------------------------------------------------------
     @register_dataset("Sdf3D")

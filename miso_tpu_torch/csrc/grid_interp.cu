@@ -66,6 +66,27 @@
 // copies, no atomics; per point it reads x and g (12 + 4F B) and its rows,
 // and writes 12 B.
 //
+// Slot-id mode (the atlas's per-point queries, ops/interp.py::
+// grid_interpolate_per_point; no Pallas kernel of its own: the JAX package
+// computes it as an XLA gather, and its arithmetic is _interp_kernel's and
+// _interp_grad_kernel's corner math with three inputs taken from the point's
+// slot).  The table is an atlas level's padded stacked storage, (S, dims[0],
+// dims[1], dims[2], F); each point carries its slot id s (MttInterpArgs::slot),
+// and mtt_axes reads lo, the extent and the logical size from slot s's rows
+// of bound (S, 3, 2) and size (S, 3), and the corner rows are offset by
+// s * slot_rows.  A point whose id lies outside [0, S) reads as zero
+// features, adds nothing and gets a zero gradient.  The forward takes the L2
+// path, one thread per point: the staged and paired paths copy one table,
+// and a stacked level at the quad LiDAR widths (220 x 220 x 47 x 4 floats a
+// slot, 36 MB) fits neither.  The backward scatters into the whole stacked
+// storage, so padded rows and rows of other slots stay 0; its atomics spread
+// over copies only where ops/tiled_interp.py::interp_grad_copies says so for
+// the stacked table's size (never at those widths: one copy, the gradient).
+// The points-only form serves alignment, where only the submap poses train.
+// Its bound is bytes: per point the 8 corner rows of F floats, the point
+// (12 B), its id (4 B) and its output (4F B), or for the backward the
+// cotangent in place of the output and 12 B of points' gradient out.
+//
 // What bounds the kernels on an H100: bytes.  Per point the forward reads x
 // (12 B) and writes F floats; the backward reads x and g (12 + 4F B), writes
 // the table once and, with the points' gradient, reads it once and writes
@@ -98,6 +119,10 @@ struct MttInterpArgs {
   int dims[3];
   int fdim;
   int vec4;              // rows as float4: fdim % 4 == 0, 16-byte aligned
+  const int32_t* slot;   // slot-id mode: (n,) each point's slot, or null (one grid)
+  long long slot_rows;   // slot-id mode: rows of one slot, dims[0] * dims[1] * dims[2]
+  int slots;             // slot-id mode: S; grid is (S, dims..., fdim), bound
+                         // (S, 3, 2), size (S, 3), out of the backward (S, dims..., fdim)
 };
 
 // The backward's copies of the table (ops/tiled_interp.py::interp_grad_copies).
@@ -106,16 +131,36 @@ struct MttGradPlan {
   float* partial;        // copies > 1: (copies, table) scratch, zeroed here
 };
 
-__device__ __forceinline__ void mtt_point_axes(const MttInterpArgs& a, long long p,
-                                               MttAxes& ax) {
+// Floats of the table (the stacked storage in slot-id mode).
+__host__ __device__ __forceinline__ long long mtt_table_elems(const MttInterpArgs& a) {
+  const long long one = (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim;
+  return a.slot != nullptr ? one * a.slots : one;
+}
+
+// The point's axes; returns the first row of its grid in the table (0 for one
+// grid, slot * slot_rows in slot-id mode), or -1 for a slot id outside
+// [0, slots).
+__device__ __forceinline__ long long mtt_point_axes(const MttInterpArgs& a, long long p,
+                                                    MttAxes& ax) {
+  const float* bound = a.bound;
+  const int32_t* size = a.size;
+  long long base = 0;
+  if (a.slot != nullptr) {
+    const int s = __ldg(a.slot + p);
+    if (s < 0 || s >= a.slots) return -1;
+    bound += 6 * s;
+    size += 3 * s;
+    base = (long long)s * a.slot_rows;
+  }
   float lo[3], ext[3], xp[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    lo[k] = a.bound[2 * k];
-    ext[k] = a.bound[2 * k + 1] - lo[k];
+    lo[k] = bound[2 * k];
+    ext[k] = bound[2 * k + 1] - lo[k];
     xp[k] = a.x[3 * p + k];
   }
-  mtt_axes(xp, lo, ext, a.dims, a.size, ax);
+  mtt_axes(xp, lo, ext, a.dims, size, ax);
+  return base;
 }
 
 // Writes one point's features to its output row.
@@ -131,12 +176,16 @@ template <bool STAGED, int FC>
 __device__ __forceinline__ void mtt_interp_point(const MttInterpArgs& a, const float* rows,
                                                  long long p) {
   MttAxes ax;
-  mtt_point_axes(a, p, ax);
+  const long long base = mtt_point_axes(a, p, ax);
+  MttRowSink sink{a.out + p * a.fdim};
+  if (base < 0) {
+    for (int f = 0; f < a.fdim; ++f) sink.put(f, 0.f);
+    return;
+  }
   int lin[8];
   float w[8];
   mtt_corners(ax, a.dims, lin, w);
-  MttRowSink sink{a.out + p * a.fdim};
-  mtt_lerp<STAGED, FC>(rows, lin, w, a.fdim, a.vec4 != 0, sink);
+  mtt_lerp<STAGED, FC>(rows + base * a.fdim, lin, w, a.fdim, a.vec4 != 0, sink);
 }
 
 // A table left in L2: one thread per point.  FC: F at compile time (4, the
@@ -245,9 +294,9 @@ __device__ __forceinline__ void mtt_atomic_add4(float* dst, float4 v) {
 
 // d out / d x of one point: <g, row_c> of each valid corner through the
 // weights' derivatives.
-__device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const MttAxes& ax,
-                                                unsigned valid, const int lin[8],
-                                                const float* gp, float* gxp) {
+__device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const float* rows,
+                                                const MttAxes& ax, unsigned valid,
+                                                const int lin[8], const float* gp, float* gxp) {
   const int F = a.fdim;
   float dot[8];
 #pragma unroll
@@ -259,7 +308,7 @@ __device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const Mt
       for (int c = 0; c < 8; ++c) {
         if (!((valid >> c) & 1u)) continue;
         const float4 r =
-            __ldg(reinterpret_cast<const float4*>(a.grid + (long long)lin[c] * F + f));
+            __ldg(reinterpret_cast<const float4*>(rows + (long long)lin[c] * F + f));
         dot[c] = fmaf(gv.x, r.x, fmaf(gv.y, r.y, fmaf(gv.z, r.z, fmaf(gv.w, r.w, dot[c]))));
       }
     }
@@ -268,7 +317,7 @@ __device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const Mt
       const float gf = __ldg(gp + f);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        if ((valid >> c) & 1u) dot[c] = fmaf(gf, __ldg(a.grid + (long long)lin[c] * F + f), dot[c]);
+        if ((valid >> c) & 1u) dot[c] = fmaf(gf, __ldg(rows + (long long)lin[c] * F + f), dot[c]);
       }
     }
   }
@@ -289,17 +338,19 @@ grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
   const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
   if (p >= a.n) return;
   MttAxes ax;
-  mtt_point_axes(a, p, ax);
+  const long long base = mtt_point_axes(a, p, ax);
+  if (base < 0) {
+    if (a.gx != nullptr) a.gx[3 * p] = a.gx[3 * p + 1] = a.gx[3 * p + 2] = 0.f;
+    return;
+  }
   int lin[8];
   float w[8];
   const unsigned valid = mtt_corners(ax, a.dims, lin, w);
   const int F = a.fdim;
   const float* gp = a.g + p * F;
   float* table = a.out;
-  if (pl.copies > 1) {
-    table = pl.partial +
-            (long long)(blockIdx.x % pl.copies) * a.dims[0] * a.dims[1] * a.dims[2] * F;
-  }
+  if (pl.copies > 1) table = pl.partial + (long long)(blockIdx.x % pl.copies) * mtt_table_elems(a);
+  table += base * F;
   // The grid's gradient.  An invalid corner adds nothing (its weight is 0).
 #pragma unroll
   for (int c = 0; c < 8; ++c) {
@@ -315,7 +366,7 @@ grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
       for (int f = 0; f < F; ++f) atomicAdd(dst + f, w[c] * __ldg(gp + f));
     }
   }
-  if (a.gx != nullptr) mtt_points_grad(a, ax, valid, lin, gp, a.gx + 3 * p);
+  if (a.gx != nullptr) mtt_points_grad(a, a.grid + base * F, ax, valid, lin, gp, a.gx + 3 * p);
 }
 
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
@@ -323,11 +374,15 @@ grid_interp_points_grad_kernel(const __grid_constant__ MttInterpArgs a) {
   const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
   if (p >= a.n) return;
   MttAxes ax;
-  mtt_point_axes(a, p, ax);
+  const long long base = mtt_point_axes(a, p, ax);
+  if (base < 0) {
+    a.gx[3 * p] = a.gx[3 * p + 1] = a.gx[3 * p + 2] = 0.f;
+    return;
+  }
   int lin[8];
   float w[8];
   const unsigned valid = mtt_corners(ax, a.dims, lin, w);
-  mtt_points_grad(a, ax, valid, lin, a.g + p * a.fdim, a.gx + 3 * p);
+  mtt_points_grad(a, a.grid + base * a.fdim, ax, valid, lin, a.g + p * a.fdim, a.gx + 3 * p);
 }
 
 // The gradient: the sum of the copies, element by element (float4 when the
@@ -360,6 +415,11 @@ static int mtt_interp_check(const MttInterpArgs& a) {
       (a.vec4 && a.fdim % 4 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (a.slot != nullptr &&
+      (a.slots < 1 || a.size == nullptr ||
+       a.slot_rows != (long long)a.dims[0] * a.dims[1] * a.dims[2])) {
+    return (int)cudaErrorInvalidValue;
+  }
   return 0;
 }
 
@@ -371,7 +431,7 @@ static int mtt_interp_check(const MttInterpArgs& a) {
 
 static int mtt_grad_launch(const MttInterpArgs& a, const MttGradPlan& pl,
                            cudaStream_t s) {
-  const long long elems = (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim;
+  const long long elems = mtt_table_elems(a);
   if (pl.copies < 1 || (pl.copies > 1 && pl.partial == nullptr) ||
       (a.n > 0 && a.g == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -400,6 +460,9 @@ extern "C" {
 // library links its own CUDA runtime, whose current device is not PyTorch's:
 // each sets it from the caller's tensors.
 //
+// In slot-id mode (a->slot set) each takes the stacked storage and per-slot
+// bounds and sizes; the forward then takes MTT_FWD_L2 only.
+//
 // The forward takes the path ops/tiled_interp.py::interp_forward_path picks:
 // MTT_FWD_L2, one thread per point from the table; MTT_FWD_STAGED, the table
 // copied to each block's shared memory, one wave of blocks; MTT_FWD_PAIRS
@@ -414,6 +477,7 @@ int mtt_grid_interp_forward(const MttInterpArgs* a, int path, float* pairs, int 
   if (path == MTT_FWD_PAIRS && (a->fdim != 4 || !a->vec4 || pairs == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
+  if (a->slot != nullptr && path != MTT_FWD_L2) return (int)cudaErrorInvalidValue;
   if (a->n == 0) return 0;
   MTT_TRY(cudaSetDevice(device));
   const cudaStream_t s = (cudaStream_t)stream;

@@ -99,6 +99,25 @@ def eikonal_loss_uniform(model_fn, bound, n, generator=None, grad_method="autogr
     return eikonal_loss_at(model_fn, coords, None, grad_method, finite_diff_eps)
 
 
+def smoothness_loss(model_fn, coords, valid_mask, key=None, smooth_std=0.1,
+                    grad_method="autograd", finite_diff_eps=1e-2):
+    """GO-SURF's gradient smoothness: the field's spatial gradient at the
+    points against its gradient at the points moved by N(0, smooth_std^2)
+    noise, masked, full-batch mean of the squared difference.
+
+    The noise is drawn from ``key`` (a ``torch.Generator`` on the points'
+    device; the default generator when None), so its stream differs from the
+    JAX package's.
+    """
+    noise = torch.randn(coords.shape, generator=key, dtype=coords.dtype,
+                        device=coords.device) * smooth_std
+    g1 = gradient3d(coords, model_fn, method=grad_method, finite_diff_eps=finite_diff_eps)
+    g2 = gradient3d(coords + noise, model_fn, method=grad_method,
+                    finite_diff_eps=finite_diff_eps)
+    c = torch.where(valid_mask == 1, g1 - g2, torch.zeros_like(g1))
+    return torch.mean(c ** 2)
+
+
 def feature_stability_loss(model, coords, mask_valid=None):
     """Drive interpolated stability to 1 at observed points, plus an L2
     regulariser on the stability grids."""

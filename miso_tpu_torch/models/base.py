@@ -1,9 +1,10 @@
 """Parameter-mask helpers (port of ``miso_tpu/models/base.py``).
 
-A mask is a dict from a module's parameter names to float tensors that
+A mask is a dict from a module's (or ``GridAtlasParams``') parameter names to float tensors that
 broadcast against the parameter: 0 = frozen, 1 = train, other values scale
 that parameter's learning rate (see ``train/optim.py``).  A "tree" here is
-an ``nn.Module`` (its named parameters) or a dict of tensors.
+an ``nn.Module`` or anything else with ``named_parameters()`` (its named
+parameters), or a dict of tensors.
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ Tree = Union[nn.Module, Dict[str, torch.Tensor]]
 
 
 def named_tensors(tree: Tree) -> Dict[str, torch.Tensor]:
-    if isinstance(tree, nn.Module):
+    """A module's (or an atlas's, ``GridAtlasParams``) named parameters, or a
+    dict's entries."""
+    if hasattr(tree, "named_parameters"):
         return dict(tree.named_parameters())
     return dict(tree)
 

@@ -28,9 +28,17 @@ The JAX package keeps each level FOLDED as ``(S, g0, g1*g2*F)`` against TPU
 lane padding; the port stores the channel-last layout and folds only in
 checkpoint files (:meth:`GridAtlasParams.tree_fields`, a free reshape), so a
 file from either package loads in the other.  Its ``slot_loop`` switch, jit
-caches and ``prewarm_*`` are TPU compile means and have no counterpart; the
-per-point queries, ``trim``/``scatter_trimmed``, ``grid_atlas_mask`` and the
-alignment coordinates come with alignment and fusion.
+caches and ``prewarm_*`` are TPU compile means and have no counterpart.
+
+Alignment and fusion read the atlas per point: ``query_feature_per_point``,
+``query_stability_per_point`` and ``forward_per_point`` take each point in
+its own submap's frame with its slot id and make one slot-id interp call a
+level over the stacked storage (``ops/tiled_interp.py::
+grid_interpolate_per_point_dispatch``).  ``trim``/``scatter_trimmed`` copy the
+live slots out for the Fuser's optimisation and back; ``grid_atlas_mask``
+gives the per-group learning rates as mask multipliers;
+``precompute_coordinates_for_alignment`` picks the cell centres that
+alignment compares.
 """
 from __future__ import annotations
 
@@ -44,7 +52,8 @@ from miso_tpu_torch.models.grid_net import (GridNet, _check_device, _settings,
                                             decoder_from_config)
 from miso_tpu_torch.ops import interp, se3
 from miso_tpu_torch.ops.fused_decode import mlp_decode
-from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
+from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_dispatch,
+                                             grid_interpolate_per_point_dispatch)
 
 
 def fold_stacked(t: torch.Tensor) -> torch.Tensor:
@@ -112,6 +121,40 @@ class GridAtlasParams:
     @property
     def device(self) -> torch.device:
         return self.bounds.device
+
+    def replace(self, **fields) -> "GridAtlasParams":
+        """A shallow copy with ``fields`` replaced (the tensors are shared)."""
+        out = copy.copy(self)
+        for k, v in fields.items():
+            if not hasattr(out, k):
+                raise AttributeError(f"GridAtlasParams has no field {k!r}")
+            setattr(out, k, list(v) if k in ("features", "stability", "sizes") else v)
+        return out
+
+    def named_parameters(self):
+        """The trainable tensors by name, as a module's: ``features.<l>``,
+        ``stability.<l>``, ``decoder.<2i or 2i+1>`` (W and b of layer i),
+        ``sub_rot_corr``, ``sub_trans_corr``, ``kf_rot_corr``,
+        ``kf_trans_corr``.  The JAX package masks its other leaves (initial
+        poses, bounds, sizes, tables) to 0 always; here they are not
+        parameters.  ``train/trainer.py``'s steps and the masks of
+        :func:`grid_atlas_mask` are keyed by these names."""
+        for l, f in enumerate(self.features):
+            yield f"features.{l}", f
+        for l, st in enumerate(self.stability):
+            yield f"stability.{l}", st
+        for i, t in enumerate(() if self.decoder is None
+                              else (t for pair in self.decoder for t in pair)):
+            yield f"decoder.{i}", t
+        for name in ("sub_rot_corr", "sub_trans_corr", "kf_rot_corr", "kf_trans_corr"):
+            yield name, getattr(self, name)
+
+    def requires_grad_(self, requires_grad: bool = True) -> "GridAtlasParams":
+        """Set ``requires_grad`` on every tensor of :meth:`named_parameters`
+        (leaves, as :meth:`trim` makes them); returns self."""
+        for _, t in self.named_parameters():
+            t.requires_grad_(requires_grad)
+        return self
 
     def tree_fields(self):
         """(key, value) of the JAX GridAtlasParams's leaves in its key-path
@@ -221,6 +264,78 @@ class GridAtlasParams:
         """Decode submap s's field at submap-frame coordinates."""
         return interp.grid_decode(self.query_feature_submap(s, x_submap, interpolate),
                                   x_submap, self._decoder(), self.pos_invariant, decode=decode)
+
+    # -- per-point submap queries ---------------------------------------------
+    # Each point reads only its own slot of every level: one slot-id interp
+    # call a level over the stacked storage (the slot-id kernels on the card),
+    # whatever the number of slots.  The alignment and per-submap losses use
+    # these (align/miso.py, losses/fusion.py).
+    def query_feature_per_point(self, sub_ids: torch.Tensor,
+                                x_submap: torch.Tensor) -> torch.Tensor:
+        """(N, L * F) features of each point in its own submap ``sub_ids``
+        (coordinates in that submap's frame); ignored levels give zeros."""
+        outs = []
+        for level, f in enumerate(self.features):
+            v = grid_interpolate_per_point_dispatch(f, sub_ids, x_submap, self.bounds,
+                                                    self.sizes[level])
+            outs.append(v * (1.0 - self.ignore_level[level].to(v.dtype)))
+        return torch.cat(outs, dim=-1)
+
+    def query_stability_per_point(self, sub_ids: torch.Tensor,
+                                  x_submap: torch.Tensor) -> torch.Tensor:
+        """(N, L) stability of each point in its own submap."""
+        return torch.cat([grid_interpolate_per_point_dispatch(st, sub_ids, x_submap, self.bounds,
+                                                              self.sizes[level])
+                          for level, st in enumerate(self.stability)], dim=-1)
+
+    def forward_per_point(self, sub_ids: torch.Tensor, x_submap: torch.Tensor) -> torch.Tensor:
+        """Decode each point against its own submap's field (a fixed decoder
+        detached)."""
+        return interp.grid_decode(self.query_feature_per_point(sub_ids, x_submap), x_submap,
+                                  self._decoder(), self.pos_invariant, decode=mlp_decode)
+
+    # -- capacity trimming (fusion) ----------------------------------------------
+    @torch.no_grad()
+    def trim(self, S_live: int) -> "GridAtlasParams":
+        """A copy of the first ``S_live`` slots, every tensor a new leaf (the
+        decoder included), for an optimisation over the live slots only
+        (``slam/fuser.py``: masked Adam walks only what it trains); valid
+        because submaps fill the slots in order and global keyframe ids are
+        sequential, so every live keyframe id is below ``S_live * K``.
+        :meth:`scatter_trimmed` writes it back."""
+        K = self.max_kfs_per_submap
+
+        def c(t, n=S_live):
+            return t[:n].clone()
+
+        return self.replace(
+            features=[c(f) for f in self.features], stability=[c(st) for st in self.stability],
+            decoder=None if self.decoder is None else
+            tuple((W.detach().clone(), b.detach().clone()) for W, b in self.decoder),
+            sub_rot_corr=c(self.sub_rot_corr), sub_trans_corr=c(self.sub_trans_corr),
+            Rws=c(self.Rws), tws=c(self.tws), kf_rot_corr=c(self.kf_rot_corr),
+            kf_trans_corr=c(self.kf_trans_corr), Rsk=c(self.Rsk), tsk=c(self.tsk),
+            bounds=c(self.bounds), sizes=[c(sz) for sz in self.sizes],
+            ignore_level=self.ignore_level.clone(), active=c(self.active),
+            kf_to_submap=c(self.kf_to_submap, S_live * K),
+            kf_to_local=c(self.kf_to_local, S_live * K), num_submaps=S_live)
+
+    @torch.no_grad()
+    def scatter_trimmed(self, t: "GridAtlasParams") -> "GridAtlasParams":
+        """Write a :meth:`trim` copy's trained tensors (features, stability,
+        decoder, submap and keyframe poses) back into the first slots of this
+        storage, in place; returns self."""
+        S_live = int(t.Rws.shape[0])
+        for dst, src in zip(self.features + self.stability, t.features + t.stability):
+            dst[:S_live] = src
+        if self.decoder is not None:
+            for dst, src in zip((x for pair in self.decoder for x in pair),
+                                (x for pair in t.decoder for x in pair)):
+                dst.copy_(src)
+        for name in ("sub_rot_corr", "sub_trans_corr", "Rws", "tws", "kf_rot_corr",
+                     "kf_trans_corr", "Rsk", "tsk"):
+            getattr(self, name)[:S_live] = getattr(t, name)
+        return self
 
     # -- submap views ----------------------------------------------------------
     @torch.no_grad()
@@ -618,6 +733,132 @@ class GridAtlas:
             local = se3.transform_points_from(world, R[dst], t[dst])
             hits = hits + se3.coords_in_bound(local, p.bounds[dst]).sum()
         return float(hits) / verts.shape[0] > overlap_thresh
+
+    # -- alignment coordinates -------------------------------------------------
+    @torch.no_grad()
+    def precompute_coordinates_for_alignment(self, norm_thresh=1e-5,
+                                             max_points: Optional[int] = None, seed: int = 0):
+        """Per (submap, level): the cell centres of the submap's grid whose
+        multi-level feature norm exceeds ``norm_thresh``, in its frame.
+
+        Returns {(s, level): (coords (P, 3), valid (P, 1))}, P the same for
+        every submap of a level, so the pair batches of alignment stack.
+
+        ``max_points=None``: every such vertex; P is the largest submap's
+        count, and a smaller set is tiled to P with its repeats marked
+        invalid (a submap with none gives P invalid zero rows).  With
+        ``max_points`` (the SLAM Fuser's path), P is min(max_points, the
+        largest submap's vertex count), a shape known without the data, and
+        each submap keeps a random P-subset of its vertices over the
+        threshold (the top P of (over threshold) * (1 + U(0, 1)) drawn from a
+        ``torch.Generator`` seeded by ``seed``), padded with invalid rows when
+        it has fewer; the norms are taken on the device in chunks of 2^19
+        vertices.  Either way the JAX package's selection in distribution,
+        the capped one not in its bits."""
+        out = {}
+        p = self.params
+        L, S = self.num_levels, self.num_submaps
+        if max_points is None:
+            for level in range(L):
+                per_submap = []
+                for s in range(S):
+                    verts = interp.vertex_positions(self._submap_shapes[s][level], p.bounds[s])
+                    norm = torch.linalg.vector_norm(p.query_feature_submap(s, verts), dim=1)
+                    per_submap.append(verts[norm > norm_thresh])
+                P = max(max((len(c) for c in per_submap), default=0), 1)
+                for s, coords in enumerate(per_submap):
+                    n = len(coords)
+                    valid = torch.zeros((P, 1), dtype=torch.float32, device=self.device)
+                    if n == 0:
+                        padded = torch.zeros((P, 3), dtype=torch.float32, device=self.device)
+                    else:
+                        padded = coords.repeat(-(-P // n), 1)[:P]
+                        valid[:n] = 1.0
+                    out[(s, level)] = (padded.contiguous(), valid)
+            self._set_alignment_coords(out)
+            return out
+        gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        for level in range(L):
+            P = self.alignment_points_per_level(max_points)[level]
+            for s in range(S):
+                out[(s, level)] = self._capped_alignment_coords(s, level, P, norm_thresh, gen)
+        self._set_alignment_coords(out)
+        return out
+
+    def _capped_alignment_coords(self, s, level, P, norm_thresh, gen, chunk=1 << 19):
+        p = self.params
+        verts = interp.vertex_positions(self._submap_shapes[s][level], p.bounds[s])
+        norm = torch.cat([torch.linalg.vector_norm(p.query_feature_submap(s, v), dim=1)
+                          for v in verts.split(chunk)])
+        score = (norm > norm_thresh).to(torch.float32) * (
+            1.0 + torch.rand(norm.shape, generator=gen, device=self.device))
+        if verts.shape[0] < P:  # a smaller submap in a mixed atlas
+            pad = P - verts.shape[0]
+            verts = torch.cat([verts, verts.new_zeros((pad, 3))])
+            score = torch.cat([score, score.new_zeros((pad,))])
+        idx = torch.topk(score, P).indices
+        return verts[idx], (score[idx] >= 1.0).to(torch.float32)[:, None]
+
+    def _set_alignment_coords(self, out):
+        self._coords_for_alignment = out
+        self._coords_stacked = {
+            level: (torch.stack([out[(s, level)][0] for s in range(self.num_submaps)]),
+                    torch.stack([out[(s, level)][1] for s in range(self.num_submaps)]))
+            for level in range(self.num_levels)}
+
+    def alignment_coords_stacked(self, level: int):
+        """(S, P, 3) coordinates and (S, P, 1) validity of one level."""
+        return self._coords_stacked[level]
+
+    def coordinates_for_alignment(self, s: int, level: int):
+        return self._coords_for_alignment[(s, level)]
+
+    def alignment_points_per_level(self, max_points: int) -> List[int]:
+        """Per level, the capped alignment point count P: min(max_points, the
+        largest submap's vertex count), from the shapes alone."""
+        return [max(min(max_points, max(int(np.prod(self._submap_shapes[s][level]))
+                                        for s in range(self.num_submaps))), 1)
+                for level in range(self.num_levels)]
+
+
+def grid_atlas_mask(params: GridAtlasParams, features: bool = False, stability: bool = False,
+                    decoder: bool = False, submap_pose: bool = False, kf_pose: bool = False,
+                    anchor_first_submap: bool = True, feature_lr: float = 1.0,
+                    submap_pose_lr: float = 1.0, kf_pose_lr: float = 1.0,
+                    level: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """The train mask of an atlas, keyed by
+    :meth:`GridAtlasParams.named_parameters`: 0 freezes a tensor, a positive
+    value trains it with the learning rate scaled by that value, so each
+    group's rate is its multiplier on a masked Adam of base rate 1.
+    ``anchor_first_submap`` keeps submap 0 at its pose; ``level=l`` trains
+    features and stability of level l only (None, or l >= the level count,
+    means all).  Submap pose rows are (S, 1) over the stacked slots."""
+    dev = params.device
+
+    def full(v, shape=()):
+        return torch.full(shape, float(v), dtype=torch.float32, device=dev)
+
+    L = params.num_levels
+    sel = ([1.0 if l == level else 0.0 for l in range(L)]
+           if level is not None and level < L else [1.0] * L)
+    sub = full(float(submap_pose) * submap_pose_lr, (params.capacity, 1))
+    if anchor_first_submap and params.capacity > 0:
+        sub[0] = 0.0
+    kf = full(float(kf_pose) * kf_pose_lr)
+    mask = {}
+    for name, _ in params.named_parameters():
+        head, _, idx = name.partition(".")
+        if head == "features":
+            mask[name] = full(float(features) * feature_lr * sel[int(idx)])
+        elif head == "stability":
+            mask[name] = full(float(stability) * feature_lr * sel[int(idx)])
+        elif head == "decoder":
+            mask[name] = full(float(decoder))
+        elif head.startswith("sub_"):
+            mask[name] = sub
+        else:
+            mask[name] = kf
+    return mask
 
 
 def node_centres(bound_w: np.ndarray, shape: Sequence[int], device) -> torch.Tensor:

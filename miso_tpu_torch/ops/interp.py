@@ -138,6 +138,72 @@ def _gather_lerp_channels(grid, lin, w, F):
     return torch.sum(w.unsqueeze(-1) * rows, dim=0)
 
 
+def grid_interpolate_per_point(stacked: torch.Tensor, sub_ids: torch.Tensor,
+                               x: torch.Tensor, bounds: torch.Tensor,
+                               sizes: torch.Tensor) -> torch.Tensor:
+    """Interpolate each point against its own submap's grid.
+
+    The stacked-atlas form of :func:`grid_interpolate` for per-point submap
+    ids, as the JAX package computes it (its ``via="gather"``): one gather
+    over the flattened (S, g..., F) storage, with each point's bound and
+    logical size taken from its slot's row and folded into the columnar index
+    math, zeros padding, corners clipped to the logical size.  O(N) work
+    whatever S.  The JAX package's ``via="slots"`` (a scan over the slots,
+    every point against every slot) gives the same values and has no
+    counterpart here.
+
+    Args:
+      stacked: (S, g0, ..., g_{d-1}, F) padded per-submap grids (one level).
+      sub_ids: (N,) integer submap index per point.
+      x: (N, d) coordinates, each in its own submap's frame.
+      bounds: (S, d, 2) per-submap local bounds.
+      sizes: (S, d) integer per-submap logical grid sizes of this level.
+
+    Returns (N, F), differentiable to any order wrt ``stacked`` and ``x``.
+    """
+    spatial = tuple(stacked.shape[1:-1])
+    if len(spatial) != x.shape[-1]:
+        raise ValueError(f"stacked grid rank {len(spatial)} != coord dim {x.shape[-1]}")
+    lin, w = per_point_corner_indices_and_weights(sub_ids, x, bounds, sizes, spatial)
+    return _gather_lerp_channels(stacked, lin, w, stacked.shape[-1])
+
+
+def per_point_corner_indices_and_weights(sub_ids, x, bounds, sizes, spatial: Sequence[int]):
+    """:func:`corner_indices_and_weights` with each point's bound and logical
+    size taken from its slot: (lin (2^d, N) flat row indices into the
+    (S, *spatial) storage, w (2^d, N) weights, zeros padding folded in)."""
+    d = x.shape[-1]
+    ids = sub_ids.long()
+    cols = []
+    for k in range(d):
+        lo = bounds[ids, k, 0]
+        hi = bounds[ids, k, 1]
+        nk_i = sizes[ids, k].long()
+        u = (x[:, k] - lo) / (hi - lo) * nk_i.to(x.dtype) - 0.5
+        i0f = torch.floor(u)
+        cols.append((i0f.to(torch.int64), u - i0f, nk_i))
+    strides = [1] * d
+    for k in range(d - 2, -1, -1):
+        strides[k] = strides[k + 1] * int(spatial[k + 1])
+    base = ids * int(np.prod([int(n) for n in spatial]))
+    lin_all, w_all = [], []
+    for corner in itertools.product((0, 1), repeat=d):
+        lin = base
+        w = None
+        ok = None
+        for k in range(d):
+            i0k, frk, nk_i = cols[k]
+            ik = i0k + corner[k]
+            ok_k = (ik >= 0) & (ik < nk_i)
+            ok = ok_k if ok is None else ok & ok_k
+            lin = lin + torch.minimum(ik.clamp(min=0), nk_i - 1) * strides[k]
+            wk = frk if corner[k] == 1 else 1.0 - frk
+            w = wk if w is None else w * wk
+        lin_all.append(lin)
+        w_all.append(w * ok.to(w.dtype))
+    return torch.stack(lin_all), torch.stack(w_all)
+
+
 def multi_level_interpolate(grids: Sequence[torch.Tensor], x: torch.Tensor,
                             bound: torch.Tensor,
                             ignore_level: Optional[torch.Tensor] = None,

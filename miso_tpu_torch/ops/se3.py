@@ -118,6 +118,42 @@ def transform_points_by_id(points, ids, R, t):
     return torch.stack(cols, dim=-1)
 
 
+def transform_points_by_id2(points, ids_a, ids_b, R, t):
+    """Two-level per-point pose transform ``R[a, b] @ p + t[a, b]`` with
+    per-point (submap, local keyframe) index pairs.
+
+    points: (N, 3); ids_a, ids_b: (N,) ints; R: (S, K, 3, 3), t: (S, K, 3).
+    Summed in the JAX version's order.
+    """
+    a, b = ids_a.long(), ids_b.long()
+    Ri = R[a, b]
+    ti = t[a, b]
+    cols = []
+    for j in range(3):
+        acc = ti[:, j]
+        for k in range(3):
+            acc = acc + Ri[:, j, k] * points[:, k]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
+def inverse_transform_points_by_id(points, ids, R, t):
+    """Per-point inverse transform ``R[ids]^T (points - t[ids])``: world
+    points into each point's own frame (the alignment losses' map into the
+    destination submap).  Summed in the JAX version's order."""
+    ids = ids.long()
+    Ri = R[ids]
+    ti = t[ids]
+    d = [points[:, k] - ti[:, k] for k in range(3)]
+    cols = []
+    for j in range(3):
+        acc = Ri[:, 0, j] * d[0]
+        for k in range(1, 3):
+            acc = acc + Ri[:, k, j] * d[k]
+        cols.append(acc)
+    return torch.stack(cols, dim=-1)
+
+
 def coords_in_bound(coords, bound):
     """(N, d) points, (d, 2) bound -> (N, 1) float mask."""
     inside = (coords >= bound[:, 0]) & (coords <= bound[:, 1])

@@ -45,7 +45,17 @@ this module computes, in the caller's point order:
 
 :func:`grid_interpolate_dispatch` sends CUDA tensors through ``_GridInterp``
 and CPU tensors to the plain version; ``GridNet`` hands it to
-``ops/interp.py::multi_level_interpolate`` as the per-level interpolation.  Two faults of the TPU op are not carried over: it breaks for
+``ops/interp.py::multi_level_interpolate`` as the per-level interpolation.
+
+The slot-id mode interpolates each point against its own slot of an atlas
+level's stacked, padded storage (S, X, Y, Z, F), with each slot's bound and
+logical size (``ops/interp.py::grid_interpolate_per_point``, the alignment's
+and per-submap losses' query): :func:`grid_interpolate_per_point_cuda` and
+:func:`grid_interpolate_per_point_grad_cuda` (counted apart from the
+single-grid calls), their plain versions, ``_GridInterpPerPoint`` and
+:func:`grid_interpolate_per_point_dispatch`, as above.
+
+Two faults of the TPU op are not carried over: it breaks for
 F > 8 (``fpad=8``) and its backward gives zeros for the points' gradient.
 """
 from __future__ import annotations
@@ -67,7 +77,8 @@ class _InterpArgs(ctypes.Structure):
                 ("g", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("gx", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("dims", ctypes.c_int * 3), ("fdim", ctypes.c_int),
-                ("vec4", ctypes.c_int)]
+                ("vec4", ctypes.c_int), ("slot", ctypes.c_void_p),
+                ("slot_rows", ctypes.c_longlong), ("slots", ctypes.c_int)]
 
 
 class _GradPlanArgs(ctypes.Structure):
@@ -203,6 +214,7 @@ def _check(grid, x, bound, size, g=None):
 
 
 def _pack(grid, x, bound, size, out, g=None, gx=None):
+    """The kernels' arguments for one grid (X, Y, Z, F)."""
     a = _InterpArgs()
     a.x, a.bound, a.grid = x.data_ptr(), bound.data_ptr(), grid.data_ptr()
     a.out = None if out is None else out.data_ptr()
@@ -409,3 +421,184 @@ def grid_interpolate_dispatch(grid: torch.Tensor, x: torch.Tensor,
         return grid_interpolate_plain(grid, x, bound, size)
     raise ValueError(f"grid_interpolate runs on CUDA or CPU tensors, not {x.device}")
 
+
+
+# ---------------------------------------------------------------------------
+# Slot-id mode: each point against its own slot of an atlas level's stacked,
+# padded storage (``ops/interp.py::grid_interpolate_per_point``).
+# ---------------------------------------------------------------------------
+
+def _check_per_point(stacked, sub_ids, x, bounds, sizes, g=None):
+    """Raise on anything the slot-id mode does not take."""
+    if x.ndim != 2 or x.shape[1] != 3:
+        raise ValueError(f"the interp kernels are 3D only: x has shape {tuple(x.shape)}")
+    if stacked.ndim != 5:
+        raise ValueError(f"stacked has shape {tuple(stacked.shape)}; expected (S, X, Y, Z, F)")
+    S, n = stacked.shape[0], x.shape[0]
+    if tuple(bounds.shape) != (S, 3, 2):
+        raise ValueError(f"bounds has shape {tuple(bounds.shape)}, expected {(S, 3, 2)}")
+    if tuple(sizes.shape) != (S, 3) or sizes.dtype != torch.int32:
+        raise TypeError(f"sizes must be an {(S, 3)} int32 tensor")
+    if tuple(sub_ids.shape) != (n,) or sub_ids.dtype != torch.int32:
+        raise TypeError(f"sub_ids must be an ({n},) int32 tensor")
+    named = [("stacked", stacked), ("x", x), ("bounds", bounds)]
+    if g is not None:
+        if tuple(g.shape) != (n, stacked.shape[-1]):
+            raise ValueError(f"cotangent has shape {tuple(g.shape)}, expected "
+                             f"{(n, stacked.shape[-1])}")
+        named.append(("cotangent", g))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
+    for name, t in named + [("sizes", sizes), ("sub_ids", sub_ids)]:
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+    if not x.is_cuda:
+        raise ValueError(f"the interp kernels need CUDA tensors, got {x.device}")
+
+
+def _pack_per_point(stacked, sub_ids, x, bounds, sizes, out, g=None, gx=None):
+    """The kernels' arguments in slot-id mode, and the tensors they point
+    into that the caller must keep alive until the launch is queued."""
+    a = _pack(stacked[0], x, bounds[0], sizes[0], out, g, gx)
+    a.grid, a.bound, a.size = stacked.data_ptr(), bounds.data_ptr(), sizes.data_ptr()
+    # An empty id tensor has no storage; a null id pointer would mean one grid.
+    ids = sub_ids if sub_ids.numel() else torch.zeros(1, dtype=torch.int32, device=x.device)
+    a.slot = ids.data_ptr()
+    a.slot_rows = math.prod(int(v) for v in stacked.shape[1:4])
+    a.slots = stacked.shape[0]
+    return a, ids
+
+
+def grid_interpolate_per_point_cuda(stacked: torch.Tensor, sub_ids: torch.Tensor,
+                                    x: torch.Tensor, bounds: torch.Tensor,
+                                    sizes: torch.Tensor) -> torch.Tensor:
+    """Launch the forward kernel in slot-id mode: (S, X, Y, Z, F) stacked
+    storage, (N,) int32 slot ids, (N, 3) points each in its slot's frame,
+    (S, 3, 2) bounds, (S, 3) int32 logical sizes -> (N, F).  One thread a
+    point from the table in L2 (one count in ``.launches``).  No autograd:
+    see :func:`grid_interpolate_per_point_dispatch`."""
+    _check_per_point(stacked, sub_ids, x, bounds, sizes)
+    out = torch.empty((x.shape[0], stacked.shape[-1]), dtype=torch.float32, device=x.device)
+    a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, out)
+    _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS["l2"], None)
+    grid_interpolate_per_point_cuda.launches += 1
+    return out
+
+
+grid_interpolate_per_point_cuda.launches = 0
+
+
+def grid_interpolate_per_point_grad_cuda(stacked, sub_ids, x, bounds, sizes, g,
+                                         need_x: bool = True, need_grid: bool = True):
+    """Launch the backward kernel in slot-id mode for cotangent ``g`` (N, F).
+
+    Returns (d_stacked (S, X, Y, Z, F) or None, d_x (N, 3) or None), as
+    :func:`grid_interpolate_grad_cuda` does: the table's gradient covers the
+    whole stacked storage, zero in padded rows and in slots no point reads,
+    with its atomics spread over :func:`interp_grad_copies` of the stacked
+    table (one count in ``.launches``); ``need_grid=False`` computes d_x
+    alone, with no table gradient and no atomics (``.points_launches``)."""
+    _check_per_point(stacked, sub_ids, x, bounds, sizes, g)
+    if not need_grid:
+        if not need_x:
+            raise ValueError("neither the grid's nor the points' gradient asked for")
+        d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+        a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, None, g, d_x)
+        _launch("mtt_grid_interp_points_grad", x.device, a)
+        grid_interpolate_per_point_grad_cuda.points_launches += 1
+        return None, d_x
+    n_copies = interp_grad_copies(tuple(stacked.shape[:4]), stacked.shape[-1], x.shape[0])
+    d_grid = torch.empty_like(stacked)
+    d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+           if need_x else None)
+    copies = _GradPlanArgs(n_copies, None)
+    if n_copies > 1:
+        # Freed on return, while the kernels may still run: PyTorch's caching
+        # allocator hands the block out again only in this stream's order.
+        partial = torch.empty(n_copies * stacked.numel(), dtype=torch.float32, device=x.device)
+        copies.partial = partial.data_ptr()
+    a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, d_grid, g, d_x)
+    _launch("mtt_grid_interp_backward", x.device, a, copies)
+    grid_interpolate_per_point_grad_cuda.launches += 1
+    return d_grid, d_x
+
+
+grid_interpolate_per_point_grad_cuda.launches = 0
+grid_interpolate_per_point_grad_cuda.points_launches = 0
+
+
+def grid_interpolate_per_point_plain(stacked, sub_ids, x, bounds, sizes):
+    """The slot-id forward's plain version:
+    ``ops/interp.py::grid_interpolate_per_point``."""
+    return interp.grid_interpolate_per_point(stacked, sub_ids, x, bounds, sizes)
+
+
+def grid_interpolate_per_point_grad_plain(stacked, sub_ids, x, bounds, sizes, g,
+                                          need_x=True, need_grid=True):
+    """The slot-id backward's plain version: the plain forward's vector-Jacobian
+    product (its row gather's backward is an ``index_add_`` scatter into the
+    stacked storage).  Returns (d_stacked or None, d_x or None)."""
+    with torch.enable_grad():
+        st = stacked.detach().requires_grad_(need_grid)
+        xx = x.detach().requires_grad_(need_x)
+        out = interp.grid_interpolate_per_point(st, sub_ids, xx, bounds, sizes)
+        wrt = [t for t, need in ((st, need_grid), (xx, need_x)) if need]
+        got = torch.autograd.grad(out, wrt, g, allow_unused=True)
+    got = [torch.zeros_like(t) if d is None else d for d, t in zip(got, wrt)]
+    d_grid = got.pop(0) if need_grid else None
+    d_x = got.pop(0) if need_x else None
+    return d_grid, d_x
+
+
+class _GridInterpPerPoint(torch.autograd.Function):
+    """``_GridInterp`` in slot-id mode: the kernel forward; the grad kernel at
+    first order (points-only when the storage needs no gradient, as in
+    alignment, where only the submap poses train); under ``create_graph`` a
+    differentiable recompute through the plain version, counted in
+    ``recomputes``."""
+
+    recomputes = 0
+
+    @staticmethod
+    def forward(ctx, stacked, x, sub_ids, bounds, sizes):
+        ctx.save_for_backward(stacked, x, sub_ids, bounds, sizes)
+        return grid_interpolate_per_point_cuda(stacked, sub_ids, x, bounds, sizes)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        stacked, x, sub_ids, bounds, sizes = ctx.saved_tensors
+        need_grid, need_x = ctx.needs_input_grad[:2]
+        if not (need_grid or need_x):
+            return None, None, None, None, None
+        if torch.is_grad_enabled():
+            _GridInterpPerPoint.recomputes += 1
+            wrt = [t for t, need in ((stacked, need_grid), (x, need_x)) if need]
+            out = interp.grid_interpolate_per_point(stacked, sub_ids, x, bounds, sizes)
+            got = list(torch.autograd.grad(out, wrt, grad_out, create_graph=True,
+                                           allow_unused=True))
+            got = [torch.zeros_like(t) if d is None else d for d, t in zip(got, wrt)]
+            d_grid = got.pop(0) if need_grid else None
+            d_x = got.pop(0) if need_x else None
+        else:
+            d_grid, d_x = grid_interpolate_per_point_grad_cuda(
+                stacked, sub_ids, x, bounds, sizes, grad_out.contiguous(),
+                need_x=need_x, need_grid=need_grid)
+        return d_grid, d_x, None, None, None
+
+
+def grid_interpolate_per_point_dispatch(stacked: torch.Tensor, sub_ids: torch.Tensor,
+                                        x: torch.Tensor, bounds: torch.Tensor,
+                                        sizes: torch.Tensor) -> torch.Tensor:
+    """Each point against its own slot of an atlas level, differentiable to
+    any order in ``stacked`` and ``x``: CUDA tensors run the slot-id kernels
+    through ``_GridInterpPerPoint``, CPU tensors the plain version."""
+    if x.is_cuda:
+        return _GridInterpPerPoint.apply(stacked, x.contiguous(),
+                                         sub_ids.to(torch.int32).contiguous(),
+                                         bounds.contiguous(), sizes.to(torch.int32).contiguous())
+    if x.device.type == "cpu":
+        return grid_interpolate_per_point_plain(stacked, sub_ids, x, bounds, sizes)
+    raise ValueError(f"grid_interpolate_per_point runs on CUDA or CPU tensors, not {x.device}")

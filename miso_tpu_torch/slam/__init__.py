@@ -1,1 +1,1 @@
-"""The SLAM runtime of one submap: tracker, mapper and the per-frame loop."""
+"""The SLAM runtime: tracker, mapper, the per-frame System and the Fuser."""

@@ -32,7 +32,6 @@ from miso_tpu_torch.datasets.base import SubmapDataset
 from miso_tpu_torch.models.grid_atlas import GridAtlas
 from miso_tpu_torch.ops import se3
 from miso_tpu_torch.slam.mapper import Mapper
-from miso_tpu_torch.slam.submap_slam import replay_window
 from miso_tpu_torch.slam.tracker import Tracker
 from miso_tpu_torch.slam.visualizer import Visualizer
 from miso_tpu_torch.utils.profiling import StageProfiler, synchronize
@@ -49,6 +48,23 @@ def quantized_local_bound(world_bound, t_anchor) -> np.ndarray:
     e = np.round((b[:, 1] - b[:, 0]) / 2.0 / q) * q
     c = np.round((b.mean(axis=1) - np.asarray(t_anchor, np.float64).reshape(3)) / q) * q
     return np.stack([c - e, c + e], axis=1).astype(np.float32)
+
+
+def replay_window(first_kf: int, head_kf: int, max_replay_frames: int,
+                  max_replay_freq: int):
+    """The keyframes one mapping burst replays: every ``replay_freq``-th
+    keyframe since the submap's first, and the head, padded to
+    ``max_replay_frames + 1`` slots by repeating the window, as the JAX
+    system pads it."""
+    replay_freq = max((head_kf - first_kf) // max_replay_frames, max_replay_freq)
+    kfs = list(range(first_kf, head_kf, replay_freq)) + [head_kf]
+    slots = max_replay_frames + 1
+    if len(kfs) > slots:
+        kfs = kfs[-slots:]
+    base = list(kfs)
+    while len(kfs) < slots:
+        kfs.append(base[len(kfs) % len(base)])
+    return kfs
 
 
 def _pose_np(R, t) -> np.ndarray:

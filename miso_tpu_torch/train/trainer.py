@@ -1,6 +1,7 @@
 """The train step and the training loops (port of
 ``miso_tpu/train/trainer.py``: ``make_train_step``, ``make_train_burst_pool``,
-``level_schedule``, ``Trainer``, ``GridTrainer``).
+``make_train_step_pool``, ``make_train_scan``, ``level_schedule``,
+``Trainer``, ``GridTrainer``).
 
 One step: loss dict, total, gradients wrt every named parameter, the NaN
 guard, and the masked optimizer update.  Training phases (per-level
@@ -10,11 +11,12 @@ The loops are plain Python, one freshly sampled batch per epoch.  A
 checkpoint holds the whole train state (model, optimizer moments, the loss
 generator, the numpy sampler, epoch and level bookkeeping), so a run resumed
 from one is bit-identical to an uninterrupted run.  The SLAM mapper's burst
-(:func:`make_train_burst_pool`) draws its batches on the device from a
-resident pool.  The JAX package's scan chunking and step caches
-(``make_train_scan*``, ``_train_scan_chunk``, ``MISO_DEBUG_BURST``) amortise
-TPU dispatch and have no counterpart here; TensorBoard logging waits for a
-later slice.
+(:func:`make_train_burst_pool`) and the Fuser's step
+(:func:`make_train_step_pool`) draw their batches on the device from a
+resident pool; :func:`make_train_scan` is a plain loop over stacked batches.
+The JAX package's scan chunking, remat and step caches (``_train_scan_chunk``,
+``MISO_DEBUG_BURST``) amortise TPU dispatch and have no counterpart here;
+TensorBoard logging waits for a later slice.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ _UPDATES = {"adam": masked_adam_update, "sgd": masked_sgd_update}
 def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     """Build the train step.
 
-    loss_fn(model, batch, key) -> dict of scalar losses.
+    loss_fn(model, batch, key) -> dict of scalar losses; ``model`` is a
+    module, an atlas's params, or a dict of leaf tensors.
     The returned step(model, opt_state, batch, key, mask, lr) ->
     (model, opt_state, total, loss_dict) updates the model's parameters and
     the optimizer state in place and returns them.
@@ -52,7 +55,7 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     update = _UPDATES[optimizer]
 
     def step(model, opt_state, batch, key, mask, lr):
-        params = dict(model.named_parameters())
+        params = named_tensors(model)
         loss_dict = loss_fn(model, batch, key)
         tl = total_loss(loss_dict)
         grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
@@ -72,9 +75,10 @@ def pool_batch_rows(u: torch.Tensor, sel: torch.Tensor, n_rows_sel: torch.Tensor
     """Flat pool rows of one burst step: uniforms u (K, B) -> row
     ``floor(u * n_rows[sel])`` of each selected keyframe's pool, as
     (K * B,) indices into the pool flattened over (keyframe, row).  The
-    floor is kept below n_rows, where a uniform just under 1 rounds up."""
+    floor is kept below n_rows, where a uniform just under 1 rounds up,
+    and at 0 where a keyframe has no rows."""
     idx = torch.floor(u * n_rows_sel[:, None].to(u.dtype)).to(torch.int64)
-    idx = torch.minimum(idx, (n_rows_sel[:, None] - 1).to(torch.int64))
+    idx = torch.minimum(idx, (n_rows_sel[:, None] - 1).to(torch.int64)).clamp(min=0)
     return (sel[:, None].to(torch.int64) * n_max + idx).reshape(-1)
 
 
@@ -117,6 +121,61 @@ def make_train_burst_pool(loss_fn: Callable, optimizer: str = "adam"):
         return model, torch.stack(totals)
 
     return burst
+
+
+def make_train_step_pool(loss_fn: Callable, optimizer: str = "adam"):
+    """One train step whose batch is drawn on the device from a resident pool
+    (the Fuser's step).
+
+    step(model, opt_state, pool, n_rows, k_live, generator, mask, lr, N) ->
+    (model, opt_state, total): N rows drawn uniformly over (keyframe <
+    k_live, row < n_rows[keyframe]) -- a keyframe uniform over the first
+    ``k_live``, then a row uniform over its count (:func:`pool_batch_rows`),
+    both from ``generator`` on the pool's device -- with ``sample_frame_ids`` = the keyframe of each
+    row and unit ``weights``, then :func:`make_train_step`'s update.
+    ``pool``: name -> (num_kfs, n_max, ...).  Nothing reads the device from
+    the host.
+    """
+    step = make_train_step(loss_fn, optimizer)
+
+    def step_pool(model, opt_state, pool, n_rows, k_live: int, generator, mask, lr, N: int):
+        n_max = next(iter(pool.values())).shape[1]
+        dev = n_rows.device
+        u = torch.rand((N,), generator=generator, device=dev)
+        kf = torch.clamp(torch.floor(u * k_live).to(torch.int64), max=int(k_live) - 1)
+        u_row = torch.rand((N, 1), generator=generator, device=dev)
+        rows = pool_batch_rows(u_row, kf, n_rows[kf], n_max)
+        batch = {name: a.reshape((a.shape[0] * a.shape[1],) + a.shape[2:]).index_select(0, rows)
+                 for name, a in pool.items()}
+        batch["sample_frame_ids"] = kf.to(torch.int32)
+        batch["weights"] = torch.ones((N, 1), dtype=torch.float32, device=dev)
+        model, opt_state, tl, _ = step(model, opt_state, batch, generator, mask, lr)
+        return model, opt_state, tl
+
+    return step_pool
+
+
+def make_train_scan(loss_fn: Callable, optimizer: str = "adam"):
+    """k train steps over stacked batches (bundle adjustment's burst).
+
+    scan(model, opt_state, batches, generator, mask, lr) -> (model, opt_state,
+    total losses (k,)): :func:`make_train_step` on ``{name: a[i]}`` for each
+    i < k of the (k, ...) stacked ``batches``, in a plain loop.  The JAX
+    package's scanned dispatch and its ``remat`` option are TPU means and
+    have no counterpart.
+    """
+    step = make_train_step(loss_fn, optimizer)
+
+    def scan(model, opt_state, batches, generator, mask, lr):
+        k = next(iter(batches.values())).shape[0]
+        totals = []
+        for i in range(k):
+            model, opt_state, tl, _ = step(model, opt_state, {n: a[i] for n, a in batches.items()},
+                                           generator, mask, lr)
+            totals.append(tl)
+        return model, opt_state, torch.stack(totals)
+
+    return scan
 
 
 def level_schedule(iterations: int, max_epochs_in_level: int, num_levels: int,

@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""The JAX package's two-submap quad run up to the Fuser, as a reference for
-chip_smoke.py phase 6.
+"""The JAX package's two-submap quad run up to the Fuser, or through it, as a
+reference for chip_smoke.py phase 6.
 
-    JAX_PLATFORMS=cpu python3 scripts/jax_quad_prefusion.py [--out FILE]
+    JAX_PLATFORMS=cpu python3 scripts/jax_quad_prefusion.py [--fuse] [--out FILE]
 
 Runs ``demo/full_slam_newer_college.py --synthetic --scene quad --num_frames
 60 --submap_size 30`` through the JAX package (the demo's own setup, decoder
-pretrain and System), stops before the Fuser, and reads what phase 6 reads:
+pretrain and System), stops before the Fuser (unless ``--fuse``), and reads
+what phase 6 reads:
 the pre-fusion ATE and rotation RMSE, the odometry-only trajectory's, the
 ATE within the submaps (each submap's keyframes aligned on their own), then
 ``consolidated_grid`` over the demo's mesh bound, the fused-vs-atlas |dSDF|
 at 2^16 points, and the fused grid's 128^3 mesh in float32 with its metrics
 at 10 cm against the ground truth in the system frame.  Prints the figures
 and writes them as JSON to ``--out`` (default: stdout only).
+
+``--fuse`` runs the demo's Fuser between the pre-fusion readings and the
+consolidation (``demo/full_slam_newer_college.py:443-456``, ``:539-565``):
+``Fuser.align()`` with the demo's overrides of the config's ``align:`` section
+(50 latent and 50 finetune iterations, lr 2e-3, 8192 points a pair), then
+``fuse(feat_lr=1e-3, submap_pose_lr=1e-4, kf_pose_lr=1e-4, iterations=30)``,
+with the ATE after each and their seconds; consolidation and the mesh then
+read the fused atlas.
 """
 import argparse
 import importlib.util
@@ -58,6 +67,8 @@ def _ate_within(T_est, T_gt, sub, trajectory_error):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None)
+    ap.add_argument("--fuse", action="store_true",
+                    help="align and fuse the submaps before consolidating")
     args = ap.parse_args()
     import jax.numpy as jnp
 
@@ -135,6 +146,32 @@ def main() -> int:
                ate_odometry_only=trajectory_error(T_odom, T_gt, align=True),
                ate_in_submaps={"slam": _ate_within(T_est, T_gt, sub, trajectory_error),
                                "odom": _ate_within(T_odom, T_gt, sub, trajectory_error)})
+
+    if args.fuse:
+        from miso_tpu.slam.fuser import Fuser
+
+        def ate():
+            Rk, tk = atlas.params.updated_kf_poses_in_world()
+            T = np.stack([_pose(r, p) for r, p in zip(np.asarray(Rk)[:n], np.asarray(tk)[:n])])
+            return trajectory_error(T, T_gt, align=True)
+
+        cfg.setdefault("align", {}).update({"level_iters": 50, "finetune_iters": 50,
+                                            "skip_finetune": False, "learning_rate": 2e-3,
+                                            "subsample_points": 8192})
+        fuser = Fuser(atlas, ds_map, cfg)
+        t1 = time.time()
+        fuser.align()
+        align_s = time.time() - t1
+        ate_postalign = ate()
+        t1 = time.time()
+        fuse_loss = fuser.fuse(feat_lr=1e-3, submap_pose_lr=1e-4, kf_pose_lr=1e-4,
+                               iterations=30)
+        fuse_s = time.time() - t1
+        out.update(align_s=align_s, fuse_s=fuse_s, ate_postalign=ate_postalign,
+                   ate_postfuse=ate(), fuse_final_loss=fuse_loss,
+                   fuse_info=fuser.last_fuse_info)
+        print(f"align {align_s:.1f} s -> ATE {100 * ate_postalign['ate_rmse']:.3f} cm; fuse "
+              f"{fuse_s:.1f} s -> ATE {100 * out['ate_postfuse']['ate_rmse']:.3f} cm", flush=True)
 
     mb = demo._mesh_bound(cfg, atlas)
     t1 = time.time()

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's steps spend their device time, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [mapping|mesh|slam|multisubmap|all] [--steps N]
-                                          [--root DIR]
+    python3 scripts/profile_torch_step.py [mapping|mesh|slam|multisubmap|align|fuse|all]
+                                          [--steps N] [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
 step (ScanNet widths, 1e6-point batches, masked Adam), first with
@@ -30,6 +30,19 @@ frame with configs/lidar/ncd_quad.yaml's settings, N times.
 GridAtlas, LM tracking, separate tracking and mapping sequences): after the
 second submap's spawn and 2 warm-up frames, N whole frames, then its LM
 tracking of one frame and one mapping burst apart, N times each.
+
+``align``: chip_smoke.py phase 7's alignment (demo/align_submaps.py's
+synthetic atlas, submap 1 perturbed): N steps of its latent level-1 stage
+and N of its SDF finetune, each after 2 warm-up steps (one
+generic_align_multiple_submaps call of N steps: the slot-id forward and
+points-only backward at both levels over 38,400 points a pair, the decode in
+the finetune, the pose gather, Adam over the poses).
+
+``fuse``: chip_smoke.py phase 6's quad run to its end, then its Fuser: N
+steps of the alignment's latent stage and N of its SDF finetune (8192 points
+a pair), and N fuse steps (2^19 points drawn from the mapping pool, the
+atlas's world query over the live slots, masked Adam over the trimmed
+atlas).
 
 For each window it prints the card, the wall time per step (host clock,
 synchronised) unprofiled and profiled, the device time per step summed over
@@ -128,7 +141,7 @@ def profile_mesh(chip_smoke):
 def _profile_system(system, steps, points):
     """N whole frames of ``system``, then the tracking of one frame and one
     mapping burst apart, N times each."""
-    from miso_tpu_torch.slam.submap_slam import replay_window
+    from miso_tpu_torch.slam.system import replay_window
 
     def frames(n):
         for _ in range(n):
@@ -224,13 +237,83 @@ def profile_multisubmap(chip_smoke, steps):
     _profile_system(system, steps, ds_map.frame_batchsize)
 
 
+def _align_stage(atlas, kind, level, subsample_points, steps_label, lr, seed=0):
+    """run(n): n steps of one alignment stage of ``atlas`` over its pairs, in
+    one generic_align_multiple_submaps call (the hierarchical alignment's
+    flat pair loss and pair batch, source terms precomputed)."""
+    from miso_tpu_torch.align import miso as align
+
+    pairs = [(i, j) for i in range(atlas.num_submaps) for j in range(i + 1, atlas.num_submaps)
+             if atlas.check_submap_intersection(i, j)]
+    loss = align.make_flat_pair_loss(kind, level=level, subsample_points=subsample_points)
+    ctx = loss.precompute_src(atlas.params, align.pair_context(atlas, level, pairs))
+
+    def run(n):
+        align.generic_align_multiple_submaps(atlas, loss, num_iters=n - 1, lr=lr,
+                                             submap_pairs=pairs, check_intersection=False,
+                                             seed=seed, loss_ctx=ctx, batched_loss=True)
+
+    run(2)
+    return run, f"{steps_label}: {len(pairs)} pair(s) of {ctx.coords.shape[1]} points"
+
+
+def profile_align(chip_smoke, steps):
+    """chip_smoke.py phase 7's alignment: steps of its latent level-1 stage
+    and of its SDF finetune."""
+    atlas, _ = chip_smoke.build_align_atlas(torch.device("cuda"))
+    atlas.set_submap_pose_correction(1, [0.02, -0.03, 0.04], [0.1, -0.05, 0.08])
+    atlas.precompute_coordinates_for_alignment()
+    for kind, level, label in (("latent", 1, "alignment step, latent level 1"),
+                               ("sdf", atlas.num_levels - 1, "alignment step, SDF finetune")):
+        run, text = _align_stage(atlas, kind, level, None, label, chip_smoke.ALIGN_LR)
+        breakdown(text, run, steps)
+
+
+def profile_fuse(chip_smoke, steps):
+    """chip_smoke.py phase 6's quad run, then its Fuser's alignment stages
+    and fuse steps."""
+    import copy
+
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.fuser import Fuser
+    from miso_tpu_torch.slam.system import System
+
+    dev = torch.device("cuda")
+    mesh, _, ds_track, ds_map, cfg, _ = chip_smoke.quad_setup()
+    cfg["system"]["profile"] = False
+    decoder = chip_smoke.pretrain_decoder(mesh, cfg["model"], dev, trunc_dist=0.5)
+    atlas = GridAtlas(cfg["model"], max_kfs_per_submap=cfg["system"]["submap_size"],
+                      capacity=cfg["system"]["submap_capacity"], device=dev)
+    atlas.set_decoder(decoder, fixed=True)
+    R0, t0 = np.eye(3, dtype=np.float32), ds_track.noisy_kf_pose_in_world(0)[1]
+    System(atlas, ds_track, ds_map, cfg, R0, t0, verbose=False).run()
+    c = dict(cfg["align"], **chip_smoke.QUAD_ALIGN)
+    atlas.precompute_coordinates_for_alignment(max_points=c.get("max_points", 32768))
+    for kind, level, label in (("latent", 1, "Fuser alignment step, latent level 1"),
+                               ("sdf", atlas.num_levels - 1, "Fuser alignment step, SDF")):
+        run, text = _align_stage(atlas, kind, level, c["subsample_points"], label,
+                                 c["learning_rate"])
+        breakdown(f"{text}, {c['subsample_points']} subsampled", run, steps)
+    fuser = Fuser(atlas, ds_map, copy.deepcopy(cfg))
+    kw = dict(chip_smoke.QUAD_FUSE, max_points_per_iter=chip_smoke.QUAD_FUSE_POINTS)
+
+    def fuse(n):
+        fuser.fuse(**dict(kw, iterations=n))
+
+    fuse(2)
+    breakdown(f"Fuser.fuse step ({chip_smoke.QUAD_FUSE_POINTS} points, {atlas.num_submaps} "
+              f"live slots; one fuse() call of N steps: its trim, mask and scatter included)",
+              fuse, steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="?", default="mapping",
-                    choices=("mapping", "mesh", "slam", "multisubmap", "all"))
+                    choices=("mapping", "mesh", "slam", "multisubmap", "align", "fuse",
+                             "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -250,6 +333,10 @@ def main() -> int:
         profile_slam(chip_smoke, args.steps)
     if which in ("multisubmap", "all"):
         profile_multisubmap(chip_smoke, args.steps)
+    if which in ("align", "all"):
+        profile_align(chip_smoke, args.steps)
+    if which in ("fuse", "all"):
+        profile_fuse(chip_smoke, args.steps)
     return 0
 
 

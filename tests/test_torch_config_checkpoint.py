@@ -117,8 +117,7 @@ def test_cfg_loss_matches_jax(name):
 
 @pytest.mark.parametrize("kind,name", [
     ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
-    ("loss", "Sdf2D"), ("loss", "PosedSdf3D"), ("loss", "PosedSdf3DSubmap"),
-    ("loss", "MisoFusion"), ("loss", "iSDF"), ("loss", "iSDFSubmap"),
+    ("loss", "Sdf2D"), ("loss", "PosedSdf3D"), ("loss", "iSDF"), ("loss", "iSDFSubmap"),
     ("dataset", "Sdf2D"), ("dataset", "PosedSdf3D"), ("dataset", "PosedSdf3DLidar"),
     ("dataset", "ScanNet"), ("dataset", "ReplicaCAD"), ("dataset", "FastCaMo")])
 def test_unported_entries_raise(kind, name):

@@ -489,3 +489,89 @@ def test_atlas_get_submap_returns_contiguous_copies(dev):
         with torch.no_grad():
             g.features[1].add_(1.0)
         assert torch.equal(atlas.params.features[1][s], before)
+
+
+# The slot-id mode: (storage (S, X, Y, Z), F, logical sizes, points).
+SLOT_CASES = {
+    "F4": ((3, 12, 10, 9), 4, [(12, 10, 9), (7, 10, 4), (12, 3, 9)], 30000),
+    "F1": ((3, 12, 10, 9), 1, [(12, 10, 9), (7, 10, 4), (12, 3, 9)], 30000),
+    "F3": ((3, 12, 10, 9), 3, [(12, 10, 9), (7, 10, 4), (12, 3, 9)], 30000),
+    "F8_one_slot": ((1, 12, 10, 9), 8, [(9, 10, 9)], 30000),
+    "n1": ((3, 12, 10, 9), 4, [(12, 10, 9), (7, 10, 4), (12, 3, 9)], 1),
+    "n0": ((3, 12, 10, 9), 4, [(12, 10, 9), (7, 10, 4), (12, 3, 9)], 0),
+}
+
+
+def _slot_case(dev, pad, F, sizes, n, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    S = pad[0]
+    stacked = torch.randn((*pad, F), generator=gen, device=dev)
+    lo = -1.0 - torch.rand((S, 3), generator=gen, device=dev)
+    bounds = torch.stack([lo, lo + 1.5 + torch.rand((S, 3), generator=gen, device=dev)],
+                         -1).contiguous()
+    ids = torch.randint(0, S, (n,), generator=gen, device=dev, dtype=torch.int32)
+    b = bounds[ids.long()]
+    ext = b[..., 1] - b[..., 0]
+    x = (b[..., 0] - 0.1 * ext + torch.rand((n, 3), generator=gen, device=dev) * 1.2 * ext)
+    return (stacked, ids, x.contiguous(), bounds,
+            torch.tensor(sizes, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES), ids=list(SLOT_CASES))
+def test_slot_interp_kernels_match_plain(dev, case):
+    """The slot-id forward, the backward (table and points, table alone) and
+    the points-only backward against the plain versions: mixed logical sizes
+    below the storage, points outside their slot's bound, F = 1, 3, 4 and 8,
+    0 and 1 points."""
+    from miso_tpu_torch.ops.tiled_interp import (
+        grid_interpolate_per_point_cuda, grid_interpolate_per_point_grad_cuda,
+        grid_interpolate_per_point_grad_plain, grid_interpolate_per_point_plain)
+    args = _slot_case(dev, *SLOT_CASES[case])
+    n, F = args[2].shape[0], args[0].shape[-1]
+    got = grid_interpolate_per_point_cuda(*args)
+    assert got.shape == (n, F)
+    torch.testing.assert_close(got, grid_interpolate_per_point_plain(*args), atol=1e-4,
+                               rtol=1e-4)
+    g = torch.randn((n, F), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    r_st, r_x = grid_interpolate_per_point_grad_plain(*args, g)
+    tol = dict(atol=1e-4 * max(float(r_st.abs().max()), 1e-6), rtol=0)
+    d_st, d_x = grid_interpolate_per_point_grad_cuda(*args, g)
+    torch.testing.assert_close(d_st, r_st, **tol)
+    only, none = grid_interpolate_per_point_grad_cuda(*args, g, need_x=False)
+    assert none is None
+    torch.testing.assert_close(only, r_st, **tol)
+    none, p_x = grid_interpolate_per_point_grad_cuda(*args, g, need_grid=False)
+    assert none is None and p_x.shape == (n, 3)
+    if n:
+        xtol = dict(atol=1e-4 * max(float(r_x.abs().max()), 1e-6), rtol=0)
+        torch.testing.assert_close(d_x, r_x, **xtol)
+        torch.testing.assert_close(p_x, r_x, **xtol)
+
+
+def test_slot_interp_function_grads_and_launches(dev):
+    """Through the dispatching op: one forward launch; a first-order backward
+    launches the table-and-points kernel, or the points-only one when the
+    storage needs no gradient; under create_graph it recomputes through the
+    plain version."""
+    from miso_tpu_torch.ops import tiled_interp as ti
+    stacked, ids, x, bounds, sizes = _slot_case(dev, *SLOT_CASES["F4"])
+    for fn, attr in ((ti.grid_interpolate_per_point_cuda, "launches"),
+                     (ti.grid_interpolate_per_point_grad_cuda, "launches"),
+                     (ti.grid_interpolate_per_point_grad_cuda, "points_launches")):
+        setattr(fn, attr, 0)
+    st = stacked.clone().requires_grad_()
+    xx = x.clone().requires_grad_()
+    out = ti.grid_interpolate_per_point_dispatch(st, ids, xx, bounds, sizes)
+    d_st, d_x = torch.autograd.grad(out.square().sum(), (st, xx))
+    assert ti.grid_interpolate_per_point_cuda.launches == 1
+    assert ti.grid_interpolate_per_point_grad_cuda.launches == 1
+    out = ti.grid_interpolate_per_point_dispatch(stacked, ids, xx, bounds, sizes)
+    (p_x,) = torch.autograd.grad(out.square().sum(), (xx,))
+    assert ti.grid_interpolate_per_point_grad_cuda.points_launches == 1
+    torch.testing.assert_close(p_x, d_x, atol=1e-4 * float(d_x.abs().max()), rtol=0)
+    before = ti._GridInterpPerPoint.recomputes
+    out = ti.grid_interpolate_per_point_dispatch(st, ids, xx, bounds, sizes)
+    (g,) = torch.autograd.grad(out.sum(), (xx,), create_graph=True)
+    g.square().sum().backward()
+    assert ti._GridInterpPerPoint.recomputes == before + 1
+    assert st.grad is not None

@@ -44,12 +44,13 @@ from miso_tpu_torch.convert import grid_net_from_numpy
 from miso_tpu_torch.datasets.sequence import SdfSequence, orbit_trajectory
 from miso_tpu_torch.datasets.shapes import room_scene
 from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+from miso_tpu_torch.models.grid_atlas import GridAtlas
 from miso_tpu_torch.models.grid_net import grid_net_mask
 from miso_tpu_torch.native import TriangleMesh
 from miso_tpu_torch.ops import se3
 from miso_tpu_torch.slam import tracker as t_tracker
 from miso_tpu_torch.slam.mapper import Mapper
-from miso_tpu_torch.slam.submap_slam import SubmapSlam, replay_window
+from miso_tpu_torch.slam.system import System, replay_window
 from miso_tpu_torch.slam.tracker import Tracker
 from miso_tpu_torch.train import trainer as t_trainer
 
@@ -314,8 +315,8 @@ def test_replay_window():
 
 
 def _jax_single_submap(grid, seq, cfg, n):
-    """System.run for one submap on a JAX GridNet, as the port's SubmapSlam
-    runs it."""
+    """System.run for one submap on a JAX GridNet: the JAX Tracker and Mapper
+    in the loop the port's System runs while it spawns no second submap."""
     m = cfg["mapping"]
     tracker, mapper = JTracker(grid, seq, cfg), JMapper(grid, seq, cfg)
     slots = m["max_replay_frames"] + 1
@@ -340,28 +341,36 @@ def _jax_single_submap(grid, seq, cfg, n):
 def test_six_frame_loop_matches_jax(meshes):
     """Six frames of online tracking (Adam, as the RGB-D profile tracks) and
     mapping from a zero submap, in the submap frame of keyframe 0, on the
-    demo's 24-frame orbit, against the JAX Tracker/Mapper loop."""
+    demo's 24-frame orbit: the port's System on a GridAtlas with one live
+    slot against the JAX Tracker/Mapper loop."""
     n = 6
     R, t = orbit_trajectory([0, 0, 0], 1.4, 1.2, 24, look_at=[0, 0, -0.5])
     seq, seq_j = SdfSequence(meshes[0], R, t, **SEQ_KW), JSeq(meshes[1], R, t, **SEQ_KW)
     R0, t0 = seq.true_kf_pose_in_world(0)
     # The submap frame is keyframe 0's: a cube around it holds the room.
-    cfg_m = model_cfg(num_poses=24, bound=[[-4.5, 4.5]] * 3)
+    bound = [[-4.5, 4.5]] * 3
+    cfg_m = model_cfg(num_poses=24, bound=bound)
     cfg = {"tracking": dict(LM_CFG, solver="adam", loss_type="L1"), "mapping": MAP_CFG,
-           "train": {"grid_training_mode": "coordinate+joint"}}
-    gj, gt = both(jax_grid(meshes[1], cfg_m, False), cfg_m)
-    Rj, tj = _jax_single_submap(gj, seq_j, cfg, n)
-    slam = SubmapSlam(gt, seq, seq, cfg, R0, t0).run(max_frames=n)
-    assert slam.num_keyframes == n
-    R_s, t_s = (a.detach().numpy()[:n] for a in slam.grid.updated_kf_poses())
+           "train": {"grid_training_mode": "coordinate+joint"},
+           "system": {"init_odom": "external", "submap_size": 24, "submap_local_bound": bound,
+                      "submap_fov_thresh": 0.0}}
+    Rj, tj = _jax_single_submap(jax_grid(meshes[1], cfg_m, False), seq_j, cfg, n)
+    atlas = GridAtlas(cfg_m, max_kfs_per_submap=24, device="cpu")
+    atlas.set_decoder(tuple((torch.as_tensor(np.asarray(W)), torch.as_tensor(np.asarray(b)))
+                            for W, b in pass_through_decoder()), fixed=True)
+    system = System(atlas, seq, seq, cfg, R0, t0, verbose=False)
+    system.run(max_frames=n)
+    assert atlas.num_keyframes == n and atlas.num_submaps == 1
+    R_sk, t_sk = atlas.params.updated_kf_poses_in_submap()
+    R_s, t_s = R_sk[0, :n].detach().numpy(), t_sk[0, :n].detach().numpy()
     np.testing.assert_allclose(t_s, tj, rtol=0, atol=1e-4)
     # Rotations entry by entry: 1e-4 is about 0.006 degrees.  (The arccos of
     # the relative rotation's trace resolves no finer than 0.02 degrees in
     # float32 matrices.)
     np.testing.assert_allclose(R_s, Rj, rtol=0, atol=1e-4)
     # Tracking moved the poses off the odometry.
-    assert np.abs(slam.grid.trans_corr[1:n].detach().numpy()).max() > 1e-3
+    assert np.abs(atlas.params.kf_trans_corr[0, 1:n].detach().numpy()).max() > 1e-3
     # World poses: the submap frame composed with keyframe 0's world pose.
-    Rw, tw = slam.kf_poses_in_world()
+    Rw, tw = system.kf_poses_in_world()
     np.testing.assert_allclose(tw, t_s @ R0.T + t0, atol=1e-5)
     np.testing.assert_allclose(Rw[0], R0, atol=1e-5)
