@@ -141,11 +141,42 @@ Phases, in order; any failure exits non-zero and prints no result:
                demo (0.360 degrees, 1.22 cm); per iteration one slot-id
                forward and one points-only backward a level (and a decode in
                the SDF finetune), exact;
-  8. report  - the card, step times, kernel times against the bound, and the
+  8. encode  - encoder initialization through the port: (a) demo/encoder_init.py
+               at its defaults (encoder_init_demo), from the JAX package's
+               random draws of the demo (ENC_DRAWS: the decoder's and the
+               encoders' initial parameters, the camera poses): a decoder
+               pretrained 250 epochs on room_scene(4.0, seed 1), per-level
+               encoders pretrained 250 steps a level (pretrain_encoders:
+               masked Adam on the target level) on 3 noisy PosedSdf3D rooms of
+               32 frames, then on the unseen room_scene(5.0) the zero and the
+               encoder init, each followed by K = 0, 5, 15, 50
+               optimize_grid_net epochs of the iSDF loss; the SDF MAE after
+               each, the encoder init's at K=0 under half the zero init's and
+               every reading within 30 % of the JAX package's CPU run of the
+               demo (JAX_ENC_*); the one-shot encoder ms
+               (CUDA-synchronized) and the pretraining seconds; (b) the
+               in-system recipe of tests/test_encoder_system.py
+               (encoder_system_setup, encoder_system_run): a 12-frame orbit,
+               2 submaps of 6 keyframes, LM tracking, from the JAX package's
+               draws of the recipe (ENCSYS_DRAWS: its pretrained decoder,
+               the encoders' initial parameters, the camera poses), encoders
+               pretrained 60 steps a level on two rooms, System at zero@30,
+               zero@10 and encode@10 init iterations; encode@10's map error
+               under 1.15 x zero@30's and 0.9 x zero@10's, one encoder init
+               per submap and no grid left registered; (c) phase 6's quad run with
+               --init_mode encode (phase_quad_encode): encoders pretrained as
+               the demo's pretrain_encoders_synthetic does (2 held-out quad
+               scenes, 150 steps a level), every submap encoder-initialized
+               with a 33-iteration init burst; the pre-fusion ATE within 5 cm
+               of the JAX package's CPU run (11.93 cm) and beside phase 6's
+               zero-init reading, the encoder ms per spawn and the spawn's
+               parts; no Fuser.  Launches exact everywhere: per residual pass
+               one interp forward per level and one decode, per pretraining
+               step one table-only interp backward;
+  9. report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches summed over phase 3's
-               default-decode run, phase 4, phase 5, phase 6 and phase 7; the
-               fused kernel's in phase 3's fused run); the last line is
-               {"ok": true, "device": ...}.
+               default-decode run, phases 4 to 8; the fused kernel's in phase
+               3's fused run); the last line is {"ok": true, "device": ...}.
 
 Phase 2 also holds the atlas queries (query_feature, query_stability,
 __call__) over 3 live slots of mixed bounds (padded storage) at the ScanNet
@@ -1557,9 +1588,13 @@ def slam_sequence(n_frames=SLAM_FRAMES, seq_kw=SLAM_SEQ):
 
 
 def pretrain_decoder(mesh, cfg_model, device, epochs=SLAM_PRETRAIN_EPOCHS,
-                     batch=2 ** 13, total=2 ** 16, trunc_dist=0.3):
+                     batch=2 ** 13, total=2 ** 16, trunc_dist=0.3, bound=None,
+                     decoder_init=None):
     """demo/full_slam_scannet.py::pretrain_decoder_synthetic: the decoder
-    trained with a grid on the scene's SDF, then kept."""
+    trained with a grid on the scene's SDF (over ``bound``, else the
+    config's; a third of the epochs a level), then kept.  ``decoder_init``
+    ((W, b), ...): the decoder's initial draw, else one from a generator
+    seeded 7."""
     from miso_tpu_torch.datasets.sdf_3d import Sdf3D
     from miso_tpu_torch.losses.miso import make_loss
     from miso_tpu_torch.losses.sdf import tsdf_loss_3d
@@ -1569,7 +1604,15 @@ def pretrain_decoder(mesh, cfg_model, device, epochs=SLAM_PRETRAIN_EPOCHS,
     cfg = copy.deepcopy(cfg_model)
     cfg["decoder"].update({"fix": False, "pretrained_model": None})
     cfg["pose"] = {"optimize": False, "num_poses": 1}
-    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(7), device=device)
+    model = create_grid_net(cfg, bound=bound, generator=torch.Generator().manual_seed(7),
+                            device=device)
+    if decoder_init is not None:
+        flat = [a for pair in decoder_init for a in pair]
+        check(len(flat) == len(model.decoder), f"decoder_init has {len(flat)} arrays, the "
+              f"model's decoder {len(model.decoder)}")
+        with torch.no_grad():
+            for p, v in zip(model.decoder, flat):
+                p.copy_(torch.as_tensor(v))
     loss_fn = make_loss(tsdf_loss_3d, sdf_weight=3e3, sign_weight=1e2, eik_weight=0.0,
                         trunc_dist=trunc_dist)
     GridTrainer({"optimizer": "adam", "learning_rate": 5e-3, "epochs": epochs,
@@ -1598,10 +1641,11 @@ def _stage_percentiles(summary, key):
 
 
 def run_online(cfg, ds, counters, final_iters=SLAM_FINAL_ITERS, ds_map=None,
-               R0=None, label="the SLAM run", decoder=None):
+               R0=None, label="the SLAM run", decoder=None, encoder=None):
     """The demo's System over the whole sequence on a GridAtlas of the
     config's capacity on the card (tracking ``ds``, mapping ``ds_map`` or
-    ``ds``; the given ``decoder`` installed fixed, else the config's), then,
+    ``ds``; the given ``decoder`` installed fixed, else the config's; the
+    ``encoder`` handed to System for ``submap_init_mode: "encode"``), then,
     with ``final_iters``, its refinement over every keyframe (features, poses
     locked) and the sync of the atlas.  Returns the report, the world
     trajectory (n, 4, 4), the System and the atlas."""
@@ -1618,7 +1662,7 @@ def run_online(cfg, ds, counters, final_iters=SLAM_FINAL_ITERS, ds_map=None,
     torch.cuda.synchronize()
     _zero_counts(counters)
     t_start = time.perf_counter()
-    system = System(atlas, ds, ds_map or ds, cfg, R0, t0, verbose=False)
+    system = System(atlas, ds, ds_map or ds, cfg, R0, t0, verbose=False, encoder=encoder)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t_start
     # Step by step up to the last two frames, with the card's allocated
@@ -2553,6 +2597,542 @@ def phase_align(card):
     return report, errs
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: encoder initialization (demo/encoder_init.py; the in-system recipe
+# of tests/test_encoder_system.py; the quad run with --init_mode encode).
+# ---------------------------------------------------------------------------
+
+# demo/encoder_init.py's defaults.
+ENC_TRUNC = 0.2
+ENC_PRETRAIN_EPOCHS = 250
+ENC_ENCODER_EPOCHS = 250
+ENC_EVAL_EPOCHS = (0, 5, 15, 50)
+ENC_FRAMES = 32
+ENC_FRAME_BATCH = 2 ** 10
+ENC_FRAME_SAMPLES = 2 ** 11
+ENC_NOISE = dict(frame_std_rad=0.00872665, frame_std_meter=0.005, distance_std=0.01)
+# The JAX package's random draws of the demo (scripts/jax_encoder_init.py
+# --decoder_keys 7 --export ENC_DRAWS): the encoders' initial parameters
+# (feature_encoder_level_{l}.npz) and draws.npz, with the decoder's initial
+# draw and the camera rotations and noisy poses of the training and test
+# datasets.  The port runs the demo from them, so the two packages differ
+# only in the pred_std noise and in float32 order.
+ENC_DRAWS = os.path.join(ROOT, "scripts", "jax_encoder_init_draws")
+# The JAX package's CPU run of the demo with its defaults
+# (JAX_PLATFORMS=cpu python demo/encoder_init.py --save_dir <dir>, 78 s on 8
+# CPU cores): the SDF MAE on the unseen room after K optimize_grid_net epochs
+# from the zero and the encoder init; each of the port's readings must lie
+# within ENC_MAE_MARGIN of it.  JAX_ENC_DECODER_AT_ZERO: its pretrained
+# decoder's value at zero features, which sets the zero init's MAE at K=0.
+JAX_ENC_ZERO = {0: 0.12658920884132385, 5: 0.11247103661298752, 15: 0.08540806174278259,
+                50: 0.03058832697570324}
+JAX_ENC_ENCODE = {0: 0.03696581721305847, 5: 0.036324117332696915, 15: 0.03677443042397499,
+                  50: 0.042409174144268036}
+JAX_ENC_DECODER_AT_ZERO = 0.13299696147441864
+ENC_MAE_MARGIN = 0.30
+
+
+def enc_mae_limit(mode, K):
+    """(reference, allowed |difference|) of a phase 8 (a) reading."""
+    ref = (JAX_ENC_ZERO if mode == "zero" else JAX_ENC_ENCODE)[K]
+    return ref, ENC_MAE_MARGIN * ref
+# tests/test_encoder_system.py's recipe: encoders pretrained 60 steps a level
+# on two held-out rooms; zero@30, zero@10 and encode@10 init iterations.  It
+# runs from the JAX package's draws of the recipe (scripts/
+# jax_encoder_system.py --export ENCSYS_DRAWS): its pretrained decoder, the
+# encoders' initial parameters, the camera poses.  A decoder the port
+# pretrains differs from run to run on the card (float atomics in the
+# interp backward), and zero@10's map error follows it: 23.7-46.7 mm over
+# five card runs, in-process repeats within 0.7 mm.  JAX_ENCSYS_ERR: the
+# JAX package's CPU run of the recipe (the same script), printed beside.
+ENCSYS_DRAWS = os.path.join(ROOT, "scripts", "jax_encoder_system_draws")
+ENCSYS_FRAMES = 12
+ENCSYS_STEPS = 60
+ENCSYS_TRUNC = 0.3
+ENCSYS_RUNS = (("zero", 30), ("zero", 10), ("encode", 10))
+JAX_ENCSYS_ERR = {"zero@30": 0.025633548386394978, "zero@10": 0.04785820655524731,
+                  "encode@10": 0.022002428770065308}
+# The quad run with --init_mode encode: encoders as the demo's
+# pretrain_encoders_synthetic trains them (2 held-out quad scenes, 24-frame
+# circuits, 150 epochs a level).  The JAX package's CPU run of the same
+# configuration (scripts/jax_quad_prefusion.py --init_mode encode, 994 s on 8
+# CPU cores): pre-fusion ATE 11.93 cm (zero init: 29.05 cm), 1.80 cm within
+# the submaps.
+QUAD_ENC_EPOCHS = 150
+JAX_QUAD_ENCODE_ATE_M = 0.1192554883912132
+
+
+def _set_grid_decoder(grid, decoder):
+    """Copy ``decoder`` ((W, b), ...) into a GridNet's and fix it."""
+    with torch.no_grad():
+        for p, v in zip(grid.decoder, (t for pair in decoder for t in pair)):
+            p.copy_(v)
+    grid.decoder_fixed = True
+    return grid
+
+
+def _set_grid_poses(grid, R, t):
+    with torch.no_grad():
+        grid.Rwk.copy_(torch.as_tensor(np.asarray(R), device=grid.Rwk.device))
+        grid.twk.copy_(torch.as_tensor(np.asarray(t), device=grid.twk.device))
+    return grid
+
+
+def encoder_init_model_cfg():
+    """demo/encoder_init.py's model: 2 levels of F=4, 1.0 m base cells, scale
+    4, an 8 -> 32 -> 32 -> 1 decoder, 32 pose rows."""
+    return {
+        "spatial_dim": 3,
+        "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.0, "bound": None,
+                 "base_cell_size": 1.0, "per_level_scale": 4.0, "n_levels": 2},
+        "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                    "pos_invariant": True, "fix": False, "pretrained_model": None},
+        "pose": {"optimize": False, "num_poses": 32},
+    }
+
+
+def pretrain_launches(L, epochs_per_level):
+    """Exact launches of pretrain_encoders over L levels: a step of target
+    level l runs l + 2 residual passes (L interp forwards and one decode
+    each) and one table-only interp backward, at level l."""
+    passes = sum((l + 2) * epochs_per_level for l in range(L))
+    return dict(interp=L * passes, decode=passes, interp_grad=L * epochs_per_level,
+                interp_points_grad=0, fused=0, interp_recompute_backward=0)
+
+
+def predict_launches(L):
+    """One one-shot prediction of L levels: L residual passes."""
+    return dict(interp=L * L, decode=L, interp_grad=0, interp_points_grad=0, fused=0,
+                interp_recompute_backward=0)
+
+
+def _check_launches(what, got, want):
+    for name, n in _exact(want).items():
+        check(got[name] == n, f"{what}: {name} launched {got[name]} times, expected {n}")
+
+
+def _load_draws(path):
+    """The JAX package's draws of a recipe (scripts/jax_encoder_init.py or
+    scripts/jax_encoder_system.py --export): (every array of
+    ``path/draws.npz``, its decoder ((W, b), ...))."""
+    with np.load(os.path.join(path, "draws.npz")) as f:
+        draws = dict(f)
+    n_layers = sum(k.startswith("W") for k in draws)
+    return draws, tuple((draws[f"W{i}"], draws[f"b{i}"]) for i in range(n_layers))
+
+
+def _posed_from_draws(mesh, draws, name, **kw):
+    """A PosedSdf3D built from the JAX package's draws: its camera rotations,
+    then its noisy poses.  The true positions come from the numpy stream
+    both packages share."""
+    from miso_tpu_torch.datasets.sdf_3d import PosedSdf3D
+    ds = PosedSdf3D(mesh, rotations=draws[f"{name}_R_gt"], **kw)
+    check(np.array_equal(ds.t_world_frame_gt, draws[f"{name}_t_gt"]) and
+          np.array_equal(ds.R_world_frame_gt, draws[f"{name}_R_gt"]),
+          f"PosedSdf3D {name}: camera poses differ from the JAX package's")
+    ds.R_world_frame, ds.t_world_frame = draws[f"{name}_R"], draws[f"{name}_t"]
+    return ds
+
+
+def encoder_init_demo(counters):
+    """demo/encoder_init.py through the port, from the JAX package's draws
+    (ENC_DRAWS): the decoder pretrained on room_scene(4.0, seed 1), the
+    per-level encoders on 3 noisy PosedSdf3D training rooms
+    (pretrain_encoders), then on the unseen room_scene(5.0, seed 0) the zero
+    and the encoder init, each followed by K optimize_grid_net epochs of the
+    iSDF loss, and the SDF MAE after each.  Launches exact in every stage.
+    Returns the report."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.models.encoder import Encoder, EncoderObservation
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.ops.mlp import mlp_apply
+    from miso_tpu_torch.train.local_opt import initialize_grid_net, optimize_grid_net
+    from miso_tpu_torch.training.train_encoders import pretrain_encoders
+    device = torch.device("cuda")
+    td = ENC_TRUNC
+    model_cfg = encoder_init_model_cfg()
+    draws, decoder_init = _load_draws(ENC_DRAWS)
+    posed = dict(frame_batchsize=ENC_FRAME_BATCH, frame_samples=ENC_FRAME_SAMPLES,
+                 num_frames=ENC_FRAMES, trunc_dist=td)
+    gen = torch.Generator().manual_seed(0)
+    t0 = time.perf_counter()
+    train_meshes = [TriangleMesh(*room_scene(4.0 + i, seed=1 + i)) for i in range(3)]
+    v = train_meshes[0].vertices          # Sdf3D's bound: the mesh's box + 0.5 m
+    decoder = pretrain_decoder(train_meshes[0], model_cfg, device, epochs=ENC_PRETRAIN_EPOCHS,
+                               trunc_dist=td,
+                               bound=np.stack([v.min(0) - 0.5, v.max(0) + 0.5], axis=1),
+                               decoder_init=decoder_init)
+    torch.cuda.synchronize()
+    decoder_s = time.perf_counter() - t0
+    model_cfg["decoder"]["fix"] = True
+    with torch.no_grad():
+        decoder_at_zero = float(mlp_apply(decoder, torch.zeros((1, 8), device=device))[0, 0])
+
+    t0 = time.perf_counter()
+    datasets, grids = [], []
+    for i, mesh in enumerate(train_meshes):
+        ds = _posed_from_draws(mesh, draws, f"train{i}", seed=i, **posed, **ENC_NOISE)
+        g = create_grid_net(model_cfg, bound=ds.get_inflated_bound(), generator=gen,
+                            device=device)
+        datasets.append(ds)
+        grids.append(_set_grid_poses(_set_grid_decoder(g, decoder), ds.R_world_frame,
+                                     ds.t_world_frame))
+    encoder = Encoder({"model": model_cfg}, pretrained_dir=ENC_DRAWS, trunc_dist=td,
+                      device=device)
+    datasets_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    losses = pretrain_encoders(encoder.level_params, grids, datasets, ENC_ENCODER_EPOCHS,
+                               trunc_dist=td, pred_std=1e-3, learning_rate=1e-3, seed=0)
+    torch.cuda.synchronize()
+    pretrain_s = time.perf_counter() - t0
+    pre_c = _read_counts(counters)
+    _check_launches("encoder pretraining", pre_c,
+                    pretrain_launches(len(encoder.level_params), ENC_ENCODER_EPOCHS))
+
+    test_mesh = TriangleMesh(*room_scene(5.0, seed=0))
+    ds_obs = _posed_from_draws(test_mesh, draws, "test", seed=50, **posed)
+    ds_eval = Sdf3D(test_mesh, batch_size=2 ** 14, total_samples=2 ** 16, trunc_dist=td)
+    grid = create_grid_net(model_cfg, bound=ds_obs.get_inflated_bound(), generator=gen,
+                           device=device)
+    _set_grid_poses(_set_grid_decoder(grid, decoder), ds_obs.R_world_frame, ds_obs.t_world_frame)
+    b = ds_obs.sample(np.random.default_rng(7))
+    with torch.no_grad():
+        coords_w = se3.transform_points_by_id(
+            torch.as_tensor(b["coords_frame"], device=device),
+            torch.as_tensor(b["sample_frame_ids"], device=device).long(),
+            torch.as_tensor(ds_obs.R_world_frame, device=device),
+            torch.as_tensor(ds_obs.t_world_frame, device=device))
+    obs = EncoderObservation(coords_world=coords_w,
+                             gt_sdf=torch.as_tensor(b["sdf"], device=device),
+                             gt_sdf_sign=torch.as_tensor(b["sdf_signs"], device=device),
+                             gt_sdf_valid=torch.as_tensor(b["sdf_valid"], device=device))
+    eb = ds_eval.sample(np.random.default_rng(13))
+    ex = torch.as_tensor(eb["coords"], device=device)
+    ey = eb["sdf"].reshape(-1)
+    ev = eb["sdf_valid"].reshape(-1) > 0
+
+    def sdf_mae(g):
+        with torch.no_grad():
+            pred = g(ex).reshape(-1).cpu().numpy()
+        return float(np.abs(pred - ey)[ev].mean())
+
+    cfg_opt = {"loss": {"trunc_distance": td, "trunc_weight": 1.0},
+               "train": {"optimizer": "adam", "verbose": False}}
+    # A first prediction to build and warm every path, as the demo warms its
+    # jit cache, so the timed one is the steady state.
+    initialize_grid_net(copy.deepcopy(grid), "encode", encoder, obs)
+    encoder.grids.clear()
+    results = {}
+    for mode in ("zero", "encode"):
+        g0 = copy.deepcopy(grid)
+        _zero_counts(counters)
+        g0, info = initialize_grid_net(g0, mode, encoder if mode == "encode" else None,
+                                       obs if mode == "encode" else None)
+        init_c = _read_counts(counters)
+        encoder.grids.clear()
+        _check_launches(f"{mode} init", init_c,
+                        predict_launches(g0.num_levels) if mode == "encode"
+                        else {k: 0 for k in predict_launches(1)})
+        curve, opt_c = {}, {}
+        for K in ENC_EVAL_EPOCHS:
+            gK = g0
+            if K:
+                _zero_counts(counters)
+                gK, _ = optimize_grid_net(copy.deepcopy(g0), ds_obs, cfg_opt, iterations=K,
+                                          learning_rate=1e-3, train_mode="joint",
+                                          iterations_per_level=max(K // 3, 1), seed=0)
+                opt_c[K] = _read_counts(counters)
+                # A step: the interp forward of each level, its backward with
+                # the points' gradient (the pose rows are parameters), one
+                # decode.
+                L = gK.num_levels
+                _check_launches(f"optimize_grid_net ({mode}, K={K})", opt_c[K],
+                                dict(interp=L * K, interp_grad=L * K, decode=K,
+                                     interp_points_grad=0, fused=0,
+                                     interp_recompute_backward=0))
+            curve[K] = sdf_mae(gK)
+        results[mode] = dict(mae_by_epoch=curve, encoder_ms=1e3 * info["total_encoder_time"],
+                             init_launches=init_c, optimize_launches=opt_c)
+    return dict(results=results, decoder_s=decoder_s, datasets_s=datasets_s,
+                pretrain_s=pretrain_s, pretrain_launches=pre_c, decoder_at_zero=decoder_at_zero,
+                pretrain_final_loss=[l[-1] for l in losses], observation_points=int(len(ey)),
+                encoder_trunc=td)
+
+
+def encoder_system_setup():
+    """tests/test_encoder_system.py's setup through the port, from the JAX
+    package's draws of it (ENCSYS_DRAWS): tests/test_slam.py's 12-frame
+    orbit of room_scene(4.0) and its model (2 levels of F=4, 1.0 m base
+    cells, scale 4, 8 -> 32 -> 32 -> 1), the JAX package's decoder pretrained
+    on the scene, encoders pretrained ENCSYS_STEPS steps a level on two
+    held-out PosedSdf3D rooms.  Returns (seq, model config, decoder,
+    encoder, pretraining seconds)."""
+    from miso_tpu_torch.datasets.sequence import SdfSequence, orbit_trajectory
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.models.encoder import Encoder
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.training.train_encoders import pretrain_encoders
+    mesh = TriangleMesh(*room_scene(4.0, seed=0))
+    R, t = orbit_trajectory([0, 0, 0], 1.4, 1.2, ENCSYS_FRAMES, look_at=[0, 0, -0.5])
+    seq = SdfSequence(mesh, R, t, frame_samples=2 ** 11, frame_batchsize=2048,
+                      trunc_dist=ENCSYS_TRUNC, near_surface_std=0.1, seed=1)
+    model_cfg = {
+        "spatial_dim": 3,
+        "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 1e-4,
+                 "bound": [[-3.0, 3.0], [-3.0, 3.0], [-2.0, 2.0]],
+                 "base_cell_size": 1.0, "per_level_scale": 4.0, "n_levels": 2},
+        "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                    "pos_invariant": True, "fix": False, "pretrained_model": None},
+        "pose": {"optimize": True, "num_poses": 100},
+    }
+    t0 = time.perf_counter()
+    device = torch.device("cuda")
+    draws, decoder = _load_draws(ENCSYS_DRAWS)
+    decoder = tuple((torch.as_tensor(W, device=device), torch.as_tensor(b, device=device))
+                    for W, b in decoder)
+    model_cfg["decoder"]["fix"] = True
+    gen = torch.Generator().manual_seed(3)
+    datasets, grids = [], []
+    for i in range(2):
+        ds = _posed_from_draws(TriangleMesh(*room_scene(4.0 + 0.5 * i, seed=10 + i)), draws,
+                               f"train{i}", frame_batchsize=2 ** 9, frame_samples=2 ** 10,
+                               num_frames=16, trunc_dist=ENCSYS_TRUNC, seed=i)
+        g = create_grid_net(model_cfg, bound=ds.get_inflated_bound(), num_poses=16,
+                            generator=gen, device=device)
+        datasets.append(ds)
+        grids.append(_set_grid_poses(_set_grid_decoder(g, decoder), ds.R_world_frame,
+                                     ds.t_world_frame))
+    encoder = Encoder({"model": model_cfg}, pretrained_dir=ENCSYS_DRAWS,
+                      trunc_dist=ENCSYS_TRUNC, device=device)
+    pretrain_encoders(encoder.level_params, grids, datasets, ENCSYS_STEPS,
+                      trunc_dist=ENCSYS_TRUNC, pred_std=1e-3, learning_rate=1e-3, seed=0)
+    torch.cuda.synchronize()
+    return seq, model_cfg, decoder, encoder, time.perf_counter() - t0
+
+
+def encoder_system_run(seq, model_cfg, decoder, init_mode, init_iters, counters, encoder):
+    """tests/test_encoder_system.py::_run_system: System over the orbit with
+    tests/test_slam.py's CFG (LM tracking), 2 submaps of 6 keyframes,
+    ``init_iters`` init-burst iterations (``encoder`` used with
+    ``init_mode`` "encode"); the map error is the mean |SDF| of the atlas at
+    512 true surface points of keyframes 3 and 9.  Launches exact.  Returns
+    the report."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.system import System
+    cfg = {
+        "tracking": {"solver": "lm", "learning_rate": 1e-3, "loss_type": "GM",
+                     "trunc_dist": None, "gm_scale_sdf": 0.1, "lm_lambda": 1e-4,
+                     "lm_max_iter": 12, "lm_tol_deg": 0.01, "lm_tol_m": 0.001, "verbose": False},
+        "mapping": {"learning_rate": 3e-3, "loss_type": "L1", "weight_sdf": 1.0,
+                    "weight_eik": 0.0, "weight_fs": 0.2, "trunc_dist": 0.3,
+                    "finite_diff_eps": 0.05, "grad_method": "finitediff",
+                    "eik_trunc_dist": 0.3, "verbose": False, "max_replay_frames": 5,
+                    "max_replay_freq": 2, "init_iterations": init_iters,
+                    "init_iterations_encode": init_iters, "iters_per_frame": 6,
+                    "level_iters_per_frame": 2},
+        "system": {"init_odom": "external", "submap_size": 6,
+                   "submap_local_bound": [[-5.0, 5.0], [-5.0, 5.0], [-5.0, 5.0]],
+                   "submap_fov_thresh": 0.0, "save_submap_mesh": False,
+                   "submap_init_mode": init_mode},
+        "visualizer": {"enable": False},
+        "train": {"grid_training_mode": "coordinate+joint", "relchange_tol": 0.0},
+    }
+    device = torch.device("cuda")
+    atlas = GridAtlas(model_cfg, max_kfs_per_submap=6, device=device)
+    atlas.set_decoder(decoder, fixed=True)
+    R0, t0 = seq.true_kf_pose_in_world(0)
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t_start = time.perf_counter()
+    system = System(atlas, seq, seq, cfg, R0, t0, verbose=False,
+                    encoder=encoder if init_mode == "encode" else None)
+    system.run()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t_start
+    c = _read_counts(counters)
+    check(atlas.num_keyframes == seq.num_kfs and atlas.num_submaps == 2,
+          f"{atlas.num_keyframes} keyframes in {atlas.num_submaps} submaps")
+    L, S = atlas.num_levels, atlas.num_submaps
+    if init_mode == "encode":
+        check(len(system.encoder_info) == S, f"{len(system.encoder_info)} encoder inits")
+        check(len(encoder.grids) == 0, f"{len(encoder.grids)} grids left registered")
+    lm_iters = (seq.num_kfs - S) * cfg["tracking"]["lm_max_iter"]
+    map_steps = S * init_iters + (seq.num_kfs - S) * 6
+    enc = S if init_mode == "encode" else 0
+    _check_launches(f"System {init_mode}@{init_iters}", c, dict(
+        interp=2 * lm_iters + 2 * map_steps + enc * L * L,
+        interp_points_grad=2 * lm_iters, interp_grad=2 * map_steps,
+        decode=lm_iters + map_steps + enc * L, fused=0, interp_recompute_backward=0))
+    errs = []
+    with torch.no_grad():
+        for kf in (3, 9):
+            pts = seq.sampled_points_at_kf(kf)[:512]
+            R, t = seq.true_kf_pose_in_world(kf)
+            world = torch.as_tensor((pts @ np.asarray(R).T + np.asarray(t)).astype(np.float32),
+                                    device=device)
+            errs.append(float(atlas.params(world).abs().mean()))
+    return dict(init_mode=init_mode, init_iters=init_iters, err=float(np.mean(errs)),
+                run_s=run_s, launches=c,
+                encoder_ms=[1e3 * i["encoder_time"] for i in system.encoder_info])
+
+
+def encoder_system_runs(seq, model_cfg, decoder, counters, encoder):
+    """ENCSYS_RUNS through encoder_system_run.  Returns (the reports, the map
+    errors), each by "mode@iters"."""
+    runs = {f"{mode}@{iters}": encoder_system_run(seq, model_cfg, decoder, mode, iters,
+                                                  counters, encoder)
+            for mode, iters in ENCSYS_RUNS}
+    return runs, {k: r["err"] for k, r in runs.items()}
+
+
+def quad_encoders(decoder, cfg_model):
+    """demo/full_slam_newer_college.py::pretrain_encoders_synthetic for the
+    quad scene: two held-out courtyards (seeds 1, 2), 24-frame LiDAR
+    circuits simulated as the demo's mapping sequences (0.15 m voxels), one
+    shared bound, the run's decoder, QUAD_ENC_EPOCHS steps a level.  Returns
+    the Encoder and its pretraining seconds."""
+    from miso_tpu_torch.datasets.sequence import SdfSequence, circuit_trajectory
+    from miso_tpu_torch.datasets.shapes import quad_scene
+    from miso_tpu_torch.models.encoder import Encoder
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.training.train_encoders import pretrain_encoders
+    device = torch.device("cuda")
+    t0 = time.perf_counter()
+    scenes = []
+    for i in range(2):
+        verts, tris = quad_scene(40.0, seed=1 + i, path_half_extent=14.0)
+        R, t = circuit_trajectory(14.0, 1.5, 24, laps=1.0, wobble=0.3)
+        scenes.append((verts, tris, R, t))
+    bound = np.stack([np.min([v.min(0) for v, *_ in scenes], 0) - 1.0,
+                      np.max([v.max(0) for v, *_ in scenes], 0) + 1.0], axis=1)
+    gen = torch.Generator().manual_seed(0)
+    datasets, grids = [], []
+    for i, (verts, tris, R, t) in enumerate(scenes):
+        ds = SdfSequence(TriangleMesh(verts, tris), R, t, frame_samples=2 ** 11,
+                         frame_batchsize=512, trunc_dist=0.5, near_surface_n=2,
+                         near_surface_std=0.25, free_space_n=1, behind_surface_n=1, seed=i,
+                         scan_pattern="lidar", width=192, height=64, voxel_size=0.15)
+        c2 = copy.deepcopy(cfg_model)
+        c2["pose"] = {"optimize": False, "num_poses": len(R)}
+        g = create_grid_net(c2, bound=bound, generator=gen, device=device)
+        datasets.append(ds)
+        grids.append(_set_grid_poses(_set_grid_decoder(g, decoder), ds.R_gt, ds.t_gt))
+    encoder = Encoder({"model": cfg_model}, generator=gen, trunc_dist=0.5, device=device)
+    pretrain_encoders(encoder.level_params, grids, datasets, QUAD_ENC_EPOCHS, trunc_dist=0.5,
+                      pred_std=1e-3, learning_rate=1e-3, seed=0)
+    torch.cuda.synchronize()
+    return encoder, time.perf_counter() - t0
+
+
+def phase_quad_encode(card, ate_zero):
+    """Phase 6's quad run with --init_mode encode: the same configuration and
+    a decoder pretrained as phase 6's, encoders from quad_encoders, every
+    submap's features from the encoder's one-shot prediction on its anchor
+    keyframe and a 33-iteration init burst (init_iterations // 3); the
+    Fuser is not run.  Gate: the pre-fusion ATE within QUAD_ATE_MARGIN_M of
+    the JAX package's CPU run of the same configuration.  Launches exact."""
+    from miso_tpu_torch.utils.eval import trajectory_error
+    dev = torch.device("cuda")
+    counters = kernel_counters()
+    mesh, _, ds_track, ds_map, cfg, _ = quad_setup()
+    decoder = pretrain_decoder(mesh, cfg["model"], dev, trunc_dist=0.5)
+    cfg["model"]["decoder"]["fix"] = True
+    encoder, enc_pretrain_s = quad_encoders(decoder, cfg["model"])
+    cfg["system"]["submap_init_mode"] = "encode"
+    online, T_est, system, atlas = run_online(
+        cfg, ds_track, counters, final_iters=0, ds_map=ds_map,
+        R0=np.eye(3, dtype=np.float32), label="the quad run with encoder init",
+        decoder=decoder, encoder=encoder)
+    T_gt = np.stack([_pose(*ds_track.true_kf_pose_in_world(k)) for k in range(ds_track.num_kfs)])
+    ate = trajectory_error(T_est, T_gt, align=True)
+    S, L = atlas.num_submaps, atlas.num_levels
+    m = cfg["mapping"]
+    init_enc = max(m["init_iterations"] // 3, 1)
+    tracked = QUAD_FRAMES - S
+    lm_iters = tracked * cfg["tracking"]["lm_max_iter"]
+    map_steps = S * init_enc + tracked * m["iters_per_frame"]
+    c = online["launches"]
+    _check_launches("quad run with encoder init", c, dict(
+        interp=2 * lm_iters + 2 * map_steps + S * L * L, interp_points_grad=2 * lm_iters,
+        interp_grad=2 * map_steps, decode=lm_iters + map_steps + S * L, fused=0,
+        interp_recompute_backward=0))
+    check(S == -(-QUAD_FRAMES // QUAD_SUBMAP_SIZE), f"{S} submaps")
+    check(len(system.encoder_info) == S and len(encoder.grids) == 0,
+          f"{len(system.encoder_info)} encoder inits, {len(encoder.grids)} grids registered")
+    enc_ms = [1e3 * i["encoder_time"] for i in system.encoder_info]
+    spawn_parts = system.spawn_ms
+    online.update(ate_prefusion=ate, ate_zero_init=ate_zero, encoder_ms=enc_ms,
+                  encoder_pretrain_s=enc_pretrain_s, init_iterations_encode=init_enc,
+                  map_steps=map_steps, lm_iterations=lm_iters,
+                  encode_beats_zero=bool(ate["ate_rmse"] < ate_zero["ate_rmse"]))
+    log(f"  quad run with encoder init: encoders pretrained in {enc_pretrain_s:.2f} s "
+        f"({QUAD_ENC_EPOCHS} steps a level); pre-fusion ATE RMSE "
+        f"{100 * ate['ate_rmse']:.3f} cm, rotation RMSE {ate['rot_rmse_deg']:.4f} deg (phase 6's "
+        f"zero init {100 * ate_zero['ate_rmse']:.3f} cm; the JAX package's CPU run with encoder "
+        f"init {100 * JAX_QUAD_ENCODE_ATE_M:.3f} cm); encoder one-shot "
+        f"{', '.join(f'{v:.2f}' for v in enc_ms)} ms per submap; spawn parts (ms) "
+        f"{spawn_parts} ({card}); launches {c}")
+    _log_frames(online, card)
+    check(abs(ate["ate_rmse"] - JAX_QUAD_ENCODE_ATE_M) < QUAD_ATE_MARGIN_M,
+          f"pre-fusion ATE with encoder init {ate['ate_rmse']:.4f} m not within "
+          f"{QUAD_ATE_MARGIN_M} m of the JAX package's CPU run ({JAX_QUAD_ENCODE_ATE_M:.4f} m)")
+    return online
+
+
+def phase_encode(card, quad_ate_zero):
+    """(a) demo/encoder_init.py at its defaults, (b) the in-system recipe of
+    tests/test_encoder_system.py, (c) the quad run with --init_mode encode."""
+    counters = kernel_counters()
+    demo = encoder_init_demo(counters)
+    z, e = demo["results"]["zero"], demo["results"]["encode"]
+    log(f"  (a) demo/encoder_init.py from the JAX package's draws: decoder pretrained in "
+        f"{demo['decoder_s']:.2f} s (its value at zero features {demo['decoder_at_zero']:.5f}; "
+        f"JAX CPU {JAX_ENC_DECODER_AT_ZERO:.5f}), encoders in {demo['pretrain_s']:.2f} s "
+        f"({ENC_ENCODER_EPOCHS} steps a level; {card}); one-shot encoder init "
+        f"{e['encoder_ms']:.3f} ms (CUDA-synchronized)")
+    for mode, ref in (("zero", JAX_ENC_ZERO), ("encode", JAX_ENC_ENCODE)):
+        curve = demo["results"][mode]["mae_by_epoch"]
+        log(f"      {mode:6s}: " + "  ".join(
+            f"K={k}: MAE {v:.4f} (JAX CPU {ref[k]:.4f})" for k, v in curve.items()))
+    log(f"      launches: pretraining {demo['pretrain_launches']}, one-shot "
+        f"{e['init_launches']}")
+    check(e["mae_by_epoch"][0] < 0.5 * z["mae_by_epoch"][0],
+          f"encoder init MAE {e['mae_by_epoch'][0]:.4f} not under half the zero init's "
+          f"{z['mae_by_epoch'][0]:.4f}")
+    for mode in ("zero", "encode"):
+        for k, v in demo["results"][mode]["mae_by_epoch"].items():
+            ref, tol = enc_mae_limit(mode, k)
+            check(abs(v - ref) <= tol,
+                  f"{mode} init, K={k}: MAE {v:.4f} not within {tol:.4f} of the JAX package's "
+                  f"CPU run ({ref:.4f})")
+
+    seq, model_cfg, decoder, encoder, setup_s = encoder_system_setup()
+    runs, err = encoder_system_runs(seq, model_cfg, decoder, counters, encoder)
+    log(f"  (b) in-system recipe from the JAX package's draws (encoders in {setup_s:.2f} s): "
+        "map error " + ", ".join(f"{k} {1e3 * v:.3f} mm (JAX CPU {1e3 * JAX_ENCSYS_ERR[k]:.3f})"
+                                 for k, v in err.items())
+        + f"; encoder one-shot {', '.join(f'{v:.2f}' for v in runs['encode@10']['encoder_ms'])}"
+        f" ms; runs {', '.join('%.2f' % r['run_s'] for r in runs.values())} s ({card})")
+    check(err["encode@10"] < 1.15 * err["zero@30"],
+          f"encode@10 error {err['encode@10']:.5f} not under 1.15 x zero@30's {err['zero@30']:.5f}")
+    check(err["encode@10"] < 0.9 * err["zero@10"],
+          f"encode@10 error {err['encode@10']:.5f} not under 0.9 x zero@10's {err['zero@10']:.5f}")
+
+    quad = phase_quad_encode(card, quad_ate_zero)
+    launches = [demo["pretrain_launches"], e["init_launches"],
+                *e["optimize_launches"].values(), *z["optimize_launches"].values(),
+                *(r["launches"] for r in runs.values()), quad["launches"]]
+    return dict(encoder_init=demo, in_system=dict(runs=runs, err=err, setup_s=setup_s),
+                quad=quad, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
@@ -2625,14 +3205,20 @@ def main() -> int:
     align_report["seconds"] = time.perf_counter() - t0
     errs.update(align_errs)
 
-    log("phase 8: report")
+    log("phase 8: encoder initialization (demo/encoder_init.py, the in-system recipe, "
+        "the quad run with --init_mode encode)")
+    t0 = time.perf_counter()
+    encode_report = phase_encode(card, quad_report["ate_prefusion"])
+    encode_report["seconds"] = time.perf_counter() - t0
+
+    log("phase 9: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
                       "fused_kernel": times, "interp_kernels": interp_times,
                       "decode_kernel": decode_t, "atlas_query": atlas_times,
                       "slot_kernels": slot_times, "main_path": main_report,
                       "main_path_fused": fused_report, "mesh_path": mesh_report,
                       "slam_path": slam_report, "quad_path": quad_report,
-                      "align_path": align_report}), flush=True)
+                      "align_path": align_report, "encode_path": encode_report}), flush=True)
 
     online, quad = slam_report["online"], quad_report
     path_launches = [main_report["launches"], mesh_report["train_launches"],
@@ -2641,14 +3227,15 @@ def main() -> int:
                      slam_report["lm"]["launches"], quad["launches"],
                      quad["fusion"]["align_launches"], quad["fusion"]["fuse_launches"],
                      quad["consolidation"]["launches"], quad["mesh"]["launches"],
-                     align_report["launches"]]
+                     align_report["launches"], *encode_report["launches"]]
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
         default-decode run, phase 4's training and lattice, phase 5's online
         run, refinement, observed mesh and LM run, phase 6's online run,
-        alignment, fuse, consolidation and fused mesh, and phase 7's
-        alignment."""
+        alignment, fuse, consolidation and fused mesh, phase 7's alignment,
+        and phase 8's encoder pretraining, one-shot prediction, optimize runs,
+        in-system runs and quad run."""
         return sum(c[name] for c in path_launches)
 
     def entry(name, source, replaces, launches, err, t):

@@ -158,7 +158,9 @@ def _register_builtins():
     _BUILTINS_DONE = True
 
     from miso_tpu_torch.losses.fusion import fusion_loss, posed_sdf_loss_3d_submap
-    from miso_tpu_torch.losses.miso import make_loss, mapping_loss, tracking_loss
+    from miso_tpu_torch.losses.isdf_loss import isdf_loss, isdf_loss_submap
+    from miso_tpu_torch.losses.miso import (make_loss, mapping_loss, posed_sdf_loss_3d,
+                                            tracking_loss)
     from miso_tpu_torch.losses.sdf import sdf_loss_3d, tsdf_loss_3d
     from miso_tpu_torch.models.grid_net import create_grid_net
 
@@ -238,10 +240,34 @@ def _register_builtins():
                          grad_method=c.get("grad_method", "finitediff"),
                          eik_trunc_dist=c.get("eik_trunc_dist", 0.1))
 
-    LOSS_REGISTRY["PosedSdf3D"] = _not_ported("posed_sdf_loss_3d", "item 2")
-    for name in ("iSDF", "iSDFSubmap"):
-        LOSS_REGISTRY[name] = _not_ported(f"The {name} loss",
-                                          "item 2 (losses/isdf_loss.py, with train/local_opt.py)")
+    @register_loss("PosedSdf3D")
+    def _posed(cfg):
+        return make_loss(posed_sdf_loss_3d, **_kw(cfg, [
+            "sdf_weight", "sign_weight", "eik_weight", "smooth_weight",
+            "trunc_dist", "smooth_std", "grad_method", "finite_diff_eps"]))
+
+    @register_loss("iSDF")
+    def _isdf_loss(cfg):
+        c = cfg["loss"]
+        return make_loss(isdf_loss,
+                         trunc_dist=c.get("trunc_dist", 0.15),
+                         sdf_weight=c.get("sdf_weight", 1.0),
+                         grad_weight=c.get("grad_weight", 0.0),
+                         eik_weight=c.get("eik_weight", 0.0),
+                         eik_apply_dist=c.get("eik_apply_dist", 0.1),
+                         free_space_factor=c.get("free_space_factor", 5.0))
+
+    @register_loss("iSDFSubmap")
+    def _isdf_submap(cfg):
+        c = cfg["loss"]
+        return make_loss(isdf_loss_submap,
+                         trunc_dist=c.get("trunc_dist", 0.15),
+                         sdf_weight=c.get("sdf_weight", 1.0),
+                         eik_weight=c.get("eik_weight", 0.0),
+                         eik_apply_dist=c.get("eik_apply_dist", 0.1),
+                         free_space_factor=c.get("free_space_factor", 5.0),
+                         pose_reg_weight=c.get("pose_reg_weight", 0.0),
+                         stability_weight=c.get("stability_weight", 0.0))
 
     # -- datasets ----------------------------------------------------------
     @register_dataset("Sdf3D")
@@ -251,6 +277,16 @@ def _register_builtins():
         return Sdf3D(d["path"], batch_size=cfg["train"].get("batch_size", 2**16),
                      trunc_dist=d.get("trunc_dist"))
 
+    @register_dataset("PosedSdf3D")
+    def _d_posed(cfg):
+        from miso_tpu_torch.datasets.sdf_3d import PosedSdf3D
+        d = cfg["dataset"]
+        return PosedSdf3D(d["path"],
+                          frame_batchsize=d.get("frame_batchsize", 2**14),
+                          frame_samples=d.get("frame_samples", 2**14),
+                          num_frames=d.get("num_frames", 64),
+                          trunc_dist=d.get("trunc_dist", 0.15))
+
     DATASET_REGISTRY["Sdf2D"] = _not_ported("Sdf2D", "item 6 (2D grids)")
-    for name in ("PosedSdf3D", "PosedSdf3DLidar", "ScanNet", "ReplicaCAD", "FastCaMo"):
+    for name in ("PosedSdf3DLidar", "ScanNet", "ReplicaCAD", "FastCaMo"):
         DATASET_REGISTRY[name] = _not_ported(f"The {name} dataset", "item 2")

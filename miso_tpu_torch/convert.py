@@ -17,6 +17,10 @@ come from ``cfg_model``, the same config dict the JAX model was built from.
 :func:`grid_atlas_params_from_numpy` takes the leaves of a JAX
 ``GridAtlasParams`` under their field names, feature and stability levels in
 its folded ``(S, g0, g1*g2*C)`` storage, with its static ``pad_spatial``.
+:func:`feature_prediction_from_numpy` and :func:`feature_prediction_to_numpy`
+carry one encoder level's parameters (``{'conv': ((W, b), ...), 'mlp':
+((W, b), ...)}``) both ways, the conv weights between the JAX package's
+(D, H, W, I, O) and torch's (O, I, D, H, W).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from miso_tpu_torch.models.encoder import FeaturePrediction
 from miso_tpu_torch.models.grid_atlas import GridAtlasParams
 from miso_tpu_torch.models.grid_net import GridNet, _check_device, _settings
 
@@ -78,3 +83,34 @@ def grid_atlas_params_from_numpy(arrays: Dict, cfg_model: Dict, num_submaps: int
         cell_sizes=settings["cell_sizes"], pos_invariant=settings["pos_invariant"],
         decoder_fixed=bool(arrays.get("decoder_fixed", settings["decoder_fixed"])),
         decode_impl=settings["decode_impl"])
+
+
+def feature_prediction_from_numpy(params: Dict, device="cuda") -> FeaturePrediction:
+    """The port's :class:`FeaturePrediction` holding a JAX encoder level's
+    arrays; its widths are read from their shapes."""
+    device = _check_device(device)
+    conv, mlp = params["conv"], params["mlp"]
+    W0 = np.asarray(conv[0][0])
+    module = FeaturePrediction(
+        fdim=int(np.shape(mlp[-1][0])[1]), rdim=int(W0.shape[3]), base_channels=int(W0.shape[4]),
+        hidden_layers=len(conv), mlp_hidden=int(np.shape(mlp[0][0])[1]),
+        mlp_layers=len(mlp) - 2, kernel_size=int(W0.shape[0]),
+        generator=torch.Generator().manual_seed(0), device=device)
+    with torch.no_grad():
+        for (W, b), pw, pb in zip(conv, module.conv.weight, module.conv.bias):
+            pw.copy_(torch.as_tensor(np.transpose(np.array(W), (4, 3, 0, 1, 2))))
+            pb.copy_(torch.as_tensor(np.array(b)))
+        for (W, b), (pw, pb) in zip(mlp, module.mlp_params):
+            pw.copy_(torch.as_tensor(np.array(W)))
+            pb.copy_(torch.as_tensor(np.array(b)))
+    return module
+
+
+def feature_prediction_to_numpy(module: FeaturePrediction) -> Dict:
+    """A :class:`FeaturePrediction`'s parameters in the JAX package's tree and
+    layouts, as numpy arrays."""
+    def a(t):
+        return t.detach().cpu().numpy()
+    return {"conv": tuple((np.transpose(a(W), (2, 3, 4, 1, 0)), a(b))
+                          for W, b in zip(module.conv.weight, module.conv.bias)),
+            "mlp": tuple((a(W), a(b)) for W, b in module.mlp_params)}

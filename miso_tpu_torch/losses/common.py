@@ -150,6 +150,23 @@ def pose_trust_region_loss(rot_corr, trans_corr, thresh_rad, thresh_m, weight=1e
     }
 
 
+def info_nce_loss(query, positive, mask=None, temperature=0.1):
+    """InfoNCE between per-point feature pairs: each query's positive is its
+    own row of ``positive``, every other row a negative.  ``mask`` (N,) or
+    (N, 1) drops rows from both the anchors and the negatives."""
+    q = query / (torch.linalg.vector_norm(query, dim=1, keepdim=True) + 1e-8)
+    p = positive / (torch.linalg.vector_norm(positive, dim=1, keepdim=True) + 1e-8)
+    logits = q @ p.T / temperature                      # (N, N)
+    if mask is not None:
+        logits = torch.where(mask.reshape(1, -1) > 0, logits,
+                             torch.full_like(logits, -1e9))
+    nll = -torch.diagonal(torch.log_softmax(logits, dim=1))[:, None]
+    if mask is None:
+        return torch.mean(nll)
+    m = mask.reshape(-1, 1).to(nll.dtype)
+    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
 def total_loss(loss_dict):
     """Sum of the loss dict's means."""
     return sum(torch.mean(v) for v in loss_dict.values())

@@ -88,6 +88,43 @@ def mapping_loss(model, batch, key=None, loss_type="L1", weight_sdf=1.0,
     return out
 
 
+def posed_sdf_loss_3d(model, batch, key=None, sdf_weight=3e3, sign_weight=1e2,
+                      eik_weight=0.0, smooth_weight=0.0, trunc_dist=0.15,
+                      smooth_std=0.1, grad_method="autograd",
+                      finite_diff_eps=1e-2, loss_type="L2",
+                      with_stability=True, pose_lock_rows=None):
+    """The posed-SDF (bundle-adjustment) loss of one GridNet: masked SDF
+    residual, free space, eikonal at uniform points of the bound, gradient
+    smoothness and feature stability.  ``key`` (a ``torch.Generator`` on the
+    model's device) draws the eikonal's points, then the smoothness noise."""
+    gt_sdf = batch["sdf"]
+    valid = batch["sdf_valid"]
+    sign = batch["sdf_signs"]
+    coords_world = _coords_to_world(model, batch, pose_lock_rows)
+    pred = model(coords_world)
+    c = torch.where(valid == 1, pred - gt_sdf, torch.zeros_like(pred))
+    if loss_type == "L2":
+        sdf_loss = torch.mean(c ** 2)
+    elif loss_type == "L1":
+        sdf_loss = torch.mean(torch.abs(c))
+    else:
+        raise ValueError(f"Invalid loss type: {loss_type}")
+    out = {"sdf": sdf_loss * sdf_weight}
+    if sign_weight > 0:
+        out["free_space"] = common.free_space_loss(pred, gt_sdf, sign, trunc_dist) * sign_weight
+    if eik_weight > 0:
+        out["eik"] = common.eikonal_loss_uniform(
+            model, model.bound, gt_sdf.shape[0], key, grad_method,
+            finite_diff_eps) * eik_weight
+    if smooth_weight > 0:
+        out["smooth"] = common.smoothness_loss(
+            model, coords_world, valid, key, smooth_std, grad_method,
+            finite_diff_eps) * smooth_weight
+    if with_stability:
+        out.update(common.feature_stability_loss(model, coords_world, valid))
+    return out
+
+
 def make_loss(fn, **fixed_kwargs):
     """Bind loss hyperparameters; returns (model, batch, key, **overrides) -> dict."""
     @functools.wraps(fn)

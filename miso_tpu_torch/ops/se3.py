@@ -224,3 +224,24 @@ def aabb(points: torch.Tensor, buffer: float = 0.0) -> torch.Tensor:
     """Axis-aligned bounding box (d, 2) of (N, d) points."""
     return torch.stack([points.min(dim=0).values - buffer,
                         points.max(dim=0).values + buffer], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Random poses for noise injection in synthetic data.  Draws come from a
+# ``torch.Generator`` (the default generator when None), on its device, so
+# their stream differs from the JAX package's keys.
+# ---------------------------------------------------------------------------
+
+def wrapped_gaussian_rotations(n: int, std_rad: float = 0.1,
+                               generator: torch.Generator = None, dtype=torch.float32):
+    """(n, 3, 3) rotations Exp(w), w ~ N(0, std_rad^2 I)."""
+    device = generator.device if generator is not None else "cpu"
+    return so3_exp(torch.randn((n, 3), generator=generator, dtype=dtype, device=device)
+                   * std_rad)
+
+
+def gaussian_translations(n: int, std: float, generator: torch.Generator = None,
+                          dtype=torch.float32):
+    """(n, 3) translations ~ N(0, std^2 I)."""
+    device = generator.device if generator is not None else "cpu"
+    return torch.randn((n, 3), generator=generator, dtype=dtype, device=device) * std

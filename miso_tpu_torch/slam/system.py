@@ -15,8 +15,12 @@ a contiguous copy); its features are written back into the atlas at a
 boundary only (spawn, checkpoint, a visualizer mesh, the end of the run),
 its pose rows every frame.  With ``system.profile`` each frame's stages are
 timed by ``utils/profiling.py::StageProfiler``, synchronizing the card
-before the clock is read.  ``system.submap_init_mode: "encode"`` (encoder
-init of a new submap) waits for the encoder (ROADMAP Queue 1, item 5).
+before the clock is read.  With an ``encoder`` and ``system.submap_init_mode:
+"encode"`` each new submap's features start from the encoder's one-shot
+prediction on its anchor keyframe's observations
+(:meth:`System._encode_init_current_submap`), and its init burst runs
+``mapping.init_iterations_encode`` iterations (default ``init_iterations //
+3``) instead of ``init_iterations``.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import numpy as np
 import torch
 
 from miso_tpu_torch.datasets.base import SubmapDataset
+from miso_tpu_torch.models.encoder import EncoderObservation
 from miso_tpu_torch.models.grid_atlas import GridAtlas
 from miso_tpu_torch.ops import se3
 from miso_tpu_torch.slam.mapper import Mapper
@@ -90,9 +95,9 @@ class System:
         self.init_iters = m.get("init_iterations", 50)
         self.encoder = encoder
         self.init_mode = cfg["system"].get("submap_init_mode", "zero")
-        if encoder is not None and self.init_mode == "encode":
-            raise NotImplementedError("system.submap_init_mode 'encode': the encoder is not "
-                                      "ported yet (ROADMAP Queue 1, item 5)")
+        self.init_iters_encode = m.get("init_iterations_encode", max(self.init_iters // 3, 1))
+        self.encoder_info = []  # per encoder-initialized submap: {'submap', 'encoder_time' (s)}
+        self._enc_rng = np.random.default_rng(cfg["system"].get("encoder_seed", 17))
         self.init_odom = cfg["system"].get("init_odom", "external")
         if self.init_odom not in ("external", "static"):
             raise ValueError(f"Unknown odometry type: {self.init_odom}")
@@ -148,12 +153,49 @@ class System:
             raise ValueError("system.submap_world_bound requires system.submap_axis_aligned")
         return quantized_local_bound(wb, t_anchor)
 
+    @property
+    def _encode_init(self) -> bool:
+        return self.encoder is not None and self.init_mode == "encode"
+
+    def _encode_init_current_submap(self):
+        """One-shot init of the new submap's features by the encoder, from a
+        batch of its anchor keyframe drawn from the mapping sequence (with
+        the generator seeded by ``system.encoder_seed``) and moved into the
+        submap frame by the anchor's pose there."""
+        from miso_tpu_torch.train.local_opt import initialize_grid_net
+
+        kf = self.current_kf_id()
+        ds = self.dataset_map
+        ds.select_keyframes([kf])
+        batch = ds.sample(self._enc_rng)
+        ds.unselect_keyframes()
+        grid = self.mapper.grid
+        dev = grid.bound.device
+
+        def t(name):
+            return torch.as_tensor(np.asarray(batch[name]), device=dev)
+
+        R, tr = grid.updated_kf_pose(kf - int(grid.anchor_kf))
+        obs = EncoderObservation(coords_world=se3.transform_points_to(t("coords_frame"), R, tr),
+                                 gt_sdf=t("sdf"), gt_sdf_sign=t("sdf_signs"),
+                                 gt_sdf_valid=t("sdf_valid"))
+        grid, info = initialize_grid_net(grid, init_mode="encode", encoder=self.encoder,
+                                         encoder_observation=obs)
+        # Drop the registration, which would keep every spawned submap's grid
+        # alive for the whole run.
+        self.encoder.grids.clear()
+        self.encoder_info.append({"submap": self.model.curr_submap_id,
+                                  "encoder_time": info["total_encoder_time"]})
+        self.mapper.grid = grid
+        self.tracker.grid = grid
+
     def _init_mapping(self):
         """The new submap's start-up burst: its anchor keyframe in every
-        replay slot."""
+        replay slot; shorter after an encoder init."""
+        iters = self.init_iters_encode if self._encode_init else self.init_iters
         slots = self.max_replay_frames + 1
-        self.mapper.mapping([self.current_kf_id()] * slots, iterations=self.init_iters,
-                            level_iterations=max(self.init_iters // 3, 1))
+        self.mapper.mapping([self.current_kf_id()] * slots, iterations=iters,
+                            level_iterations=max(iters // 3, 1))
         self.tracker.grid = self.mapper.grid
 
     # -- lifecycle -------------------------------------------------------------
@@ -172,6 +214,8 @@ class System:
 
     def _after_init(self):
         self._fresh_tracker_mapper()
+        if self._encode_init:
+            self._encode_init_current_submap()
         self._init_mapping()
         self._sync_submap_from_tracker_mapper()
         self.visualizer = Visualizer(self.model, cfg=self.cfg)
@@ -227,6 +271,9 @@ class System:
         mark("add_submap")
         self._fresh_tracker_mapper()
         mark("fresh_tm")
+        if self._encode_init:
+            self._encode_init_current_submap()
+            mark("encode_init")
         self._init_mapping()
         mark("init_mapping")
         self._sync_submap_from_tracker_mapper()

@@ -2,7 +2,8 @@
 """The JAX package's two-submap quad run up to the Fuser, or through it, as a
 reference for chip_smoke.py phase 6.
 
-    JAX_PLATFORMS=cpu python3 scripts/jax_quad_prefusion.py [--fuse] [--out FILE]
+    JAX_PLATFORMS=cpu python3 scripts/jax_quad_prefusion.py [--fuse] [--init_mode encode]
+        [--out FILE]
 
 Runs ``demo/full_slam_newer_college.py --synthetic --scene quad --num_frames
 60 --submap_size 30`` through the JAX package (the demo's own setup, decoder
@@ -22,6 +23,13 @@ consolidation (``demo/full_slam_newer_college.py:443-456``, ``:539-565``):
 ``fuse(feat_lr=1e-3, submap_pose_lr=1e-4, kf_pose_lr=1e-4, iterations=30)``,
 with the ATE after each and their seconds; consolidation and the mesh then
 read the fused atlas.
+
+``--init_mode encode`` is the demo's ``--init_mode encode``
+(``:392-418``): per-level encoders pretrained by the demo's
+``pretrain_encoders_synthetic`` (2 held-out quad scenes, 150 epochs a
+level) initialise each new submap's features from its anchor keyframe, and
+the init burst runs ``init_iterations // 3`` iterations; the readings add
+each spawn's encoder seconds and the encoder pretraining's.
 """
 import argparse
 import importlib.util
@@ -69,6 +77,8 @@ def main() -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--fuse", action="store_true",
                     help="align and fuse the submaps before consolidating")
+    ap.add_argument("--init_mode", default="zero", choices=["zero", "encode"],
+                    help="a new submap's feature init (the demo's --init_mode)")
     args = ap.parse_args()
     import jax.numpy as jnp
 
@@ -122,13 +132,22 @@ def main() -> int:
     dec = demo.pretrain_decoder_synthetic(mesh_gt, cfg["model"], 0.5)
     pretrain_s = time.time() - t1
     cfg["model"]["decoder"]["fix"] = True
+    encoder, encoder_pretrain_s = None, 0.0
+    if args.init_mode == "encode":
+        from miso_tpu.models.encoder import Encoder
+        t1 = time.time()
+        encoder = Encoder({"model": cfg["model"]}, trunc_dist=0.5)
+        encoder.level_params = list(demo.pretrain_encoders_synthetic(
+            dec, cfg["model"], 0.5, scene="quad"))
+        encoder_pretrain_s = time.time() - t1
+        cfg["system"]["submap_init_mode"] = "encode"
     atlas = GridAtlas(cfg["model"], max_kfs_per_submap=SUBMAP_SIZE,
                       capacity=cfg["system"].get("submap_capacity"))
     atlas.set_decoder(dec, fixed=True)
     _, t_w0 = ds_track.noisy_kf_pose_in_world(0)
     t1 = time.time()
     system = System(atlas, ds_track, ds_map, cfg, R_world_origin=np.eye(3, dtype=np.float32),
-                    t_world_origin=t_w0)
+                    t_world_origin=t_w0, encoder=encoder)
     system.run()
     slam_s = time.time() - t1
 
@@ -142,6 +161,8 @@ def main() -> int:
     T_odom = np.stack(T_odom)
     sub = np.array([atlas.submap_id_for_kf(k) for k in range(n)])
     out = dict(frames=n, submaps=atlas.num_submaps, pretrain_s=pretrain_s, slam_s=slam_s,
+               init_mode=args.init_mode, encoder_pretrain_s=encoder_pretrain_s,
+               encoder_info=system.encoder_info,
                ate_prefusion=trajectory_error(T_est, T_gt, align=True),
                ate_odometry_only=trajectory_error(T_odom, T_gt, align=True),
                ate_in_submaps={"slam": _ate_within(T_est, T_gt, sub, trajectory_error),

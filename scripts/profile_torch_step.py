@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the port's steps spend their device time, on one CUDA card.
 
-    python3 scripts/profile_torch_step.py [mapping|mesh|slam|multisubmap|align|fuse|all]
+    python3 scripts/profile_torch_step.py
+        [mapping|mesh|slam|multisubmap|align|fuse|encode|all]
                                           [--steps N] [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
@@ -43,6 +44,14 @@ steps of the alignment's latent stage and N of its SDF finetune (8192 points
 a pair), and N fuse steps (2^19 points drawn from the mapping pool, the
 atlas's world query over the live slots, masked Adam over the trimmed
 atlas).
+
+``encode``: chip_smoke.py phase 8's encoder: the one-shot prediction on
+demo/encoder_init.py's unseen room (32 frames of 2^10 points, 2 levels of
+F=4), N times after 2 warm-up calls; N pretraining steps a level there
+(training.train_encoders.pretrain_encoders: host sampling, 2 or 3 residual
+passes, the target level's backward, masked Adam); and the encoder init of
+a quad submap (phase 6's model, one keyframe's 2048 mapping points), N
+times.
 
 For each window it prints the card, the wall time per step (host clock,
 synchronised) unprofiled and profiled, the device time per step summed over
@@ -306,6 +315,76 @@ def profile_fuse(chip_smoke, steps):
               fuse, steps)
 
 
+def profile_encode(chip_smoke, steps):
+    from miso_tpu_torch.datasets.sdf_3d import PosedSdf3D
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.models.encoder import Encoder, EncoderObservation
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.ops import se3
+    from miso_tpu_torch.training.train_encoders import pretrain_encoders
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+
+    def observed_grid(cfg, bound, num_poses, R, t, batch):
+        """A grid over ``bound`` at the poses (R, t), its encoder, and the
+        observation of ``batch`` in the grid's frame."""
+        cfg = dict(cfg, decoder=dict(cfg["decoder"], fix=True),
+                   pose={"optimize": False, "num_poses": num_poses})
+        grid = create_grid_net(cfg, bound=bound, generator=gen, device=dev)
+        chip_smoke._set_grid_poses(grid, R, t)
+        b = {k: torch.as_tensor(np.asarray(v), device=dev) for k, v in batch.items()}
+        with torch.no_grad():
+            R_, t_ = grid.updated_kf_poses()
+            x = se3.transform_points_by_id(b["coords_frame"], b["sample_frame_ids"].long(),
+                                           R_, t_)
+        obs = EncoderObservation(coords_world=x, gt_sdf=b["sdf"], gt_sdf_sign=b["sdf_signs"],
+                                 gt_sdf_valid=b["sdf_valid"])
+        encoder = Encoder({"model": cfg}, generator=gen, trunc_dist=chip_smoke.ENC_TRUNC,
+                          device=dev)
+        return grid, encoder, obs
+
+    def prediction(grid, encoder, obs, label):
+        mid = encoder.register_grid_model(grid)
+
+        def run(n):
+            for _ in range(n):
+                encoder.predict_corrections(mid, obs)
+
+        run(2)
+        breakdown(label, run, steps)
+
+    ds = PosedSdf3D(TriangleMesh(*room_scene(5.0, seed=0)),
+                    frame_batchsize=chip_smoke.ENC_FRAME_BATCH,
+                    frame_samples=chip_smoke.ENC_FRAME_SAMPLES,
+                    num_frames=chip_smoke.ENC_FRAMES, trunc_dist=chip_smoke.ENC_TRUNC, seed=50)
+    grid, encoder, obs = observed_grid(chip_smoke.encoder_init_model_cfg(),
+                                       ds.get_inflated_bound(), ds.num_frames, ds.R_world_frame,
+                                       ds.t_world_frame, ds.sample(np.random.default_rng(7)))
+    prediction(grid, encoder, obs, f"one-shot encoder prediction (demo/encoder_init.py's "
+               f"test scene, {obs.coords_world.shape[0]} points)")
+
+    def pretrain(n):
+        pretrain_encoders(encoder.level_params, [grid], [ds], n,
+                          trunc_dist=chip_smoke.ENC_TRUNC)
+
+    pretrain(2)
+    breakdown("encoder pretraining: a step of each level (host sampling included)", pretrain,
+              steps)
+
+    mesh, _, _, ds_map, cfg, _ = chip_smoke.quad_setup()
+    ds_map.select_keyframes([0])
+    batch = ds_map.sample(np.random.default_rng(17))
+    ds_map.unselect_keyframes()
+    R, t = ds_map.true_kf_pose_in_world(0)
+    grid, encoder, obs = observed_grid(cfg["model"], cfg["model"]["grid"]["bound"], 1,
+                                       np.asarray(R)[None], np.zeros((1, 3), np.float32), batch)
+    prediction(grid, encoder, obs, f"encoder init of a quad submap (levels "
+               f"{[tuple(f.shape[:3]) for f in grid.features]}, "
+               f"{obs.coords_world.shape[0]} points)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -313,7 +392,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="?", default="mapping",
                     choices=("mapping", "mesh", "slam", "multisubmap", "align", "fuse",
-                             "all"))
+                             "encode", "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -337,6 +416,8 @@ def main() -> int:
         profile_align(chip_smoke, args.steps)
     if which in ("fuse", "all"):
         profile_fuse(chip_smoke, args.steps)
+    if which in ("encode", "all"):
+        profile_encode(chip_smoke, args.steps)
     return 0
 
 

@@ -96,7 +96,8 @@ def _batch(n=256, seed=0):
             "sdf_signs": rng.choice([-1.0, 0.0, 1.0], (n, 1)).astype(np.float32)}
 
 
-@pytest.mark.parametrize("name", ["MisoMapping", "MisoTracking", "Tsdf3D", "Sdf3D"])
+@pytest.mark.parametrize("name", ["MisoMapping", "MisoTracking", "Tsdf3D", "Sdf3D",
+                                  "PosedSdf3D", "iSDF"])
 def test_cfg_loss_matches_jax(name):
     cfg = _scannet()
     cfg["model"]["grid"]["init_stddev"] = 0.1
@@ -117,8 +118,7 @@ def test_cfg_loss_matches_jax(name):
 
 @pytest.mark.parametrize("kind,name", [
     ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
-    ("loss", "Sdf2D"), ("loss", "PosedSdf3D"), ("loss", "iSDF"), ("loss", "iSDFSubmap"),
-    ("dataset", "Sdf2D"), ("dataset", "PosedSdf3D"), ("dataset", "PosedSdf3DLidar"),
+    ("loss", "Sdf2D"), ("dataset", "Sdf2D"), ("dataset", "PosedSdf3DLidar"),
     ("dataset", "ScanNet"), ("dataset", "ReplicaCAD"), ("dataset", "FastCaMo")])
 def test_unported_entries_raise(kind, name):
     cfg = _scannet()
@@ -131,6 +131,24 @@ def test_unported_entries_raise(kind, name):
     with pytest.raises(ValueError, match="Unknown"):
         cfg[kind]["name"] = "no_such_entry"
         build()
+
+
+def test_cfg_dataset_builds_posed_sdf3d(tmp_path):
+    """``dataset.name: PosedSdf3D`` from a mesh file: the JAX registry's
+    dataset's camera positions and sizes (its rotations come from a JAX key,
+    the port's from a torch generator)."""
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.utils.sdf import write_ply
+    path = str(tmp_path / "room.ply")
+    write_ply(path, *room_scene(3.0, seed=2))
+    cfg = {"dataset": {"name": "PosedSdf3D", "path": path, "frame_batchsize": 32,
+                       "frame_samples": 128, "num_frames": 3, "trunc_dist": 0.2}}
+    got, ref = t_config.cfg_dataset(cfg), j_config.cfg_dataset(cfg)
+    assert type(got).__name__ == type(ref).__name__ == "PosedSdf3D"
+    np.testing.assert_array_equal(got.t_world_frame_gt, ref.t_world_frame_gt)
+    assert (got.num_frames, got.frame_samples, got.frame_batchsize, got.trunc_dist) == \
+        (ref.num_frames, ref.frame_samples, ref.frame_batchsize, ref.trunc_dist)
+    assert got.sample(np.random.default_rng(0))["coords_frame"].shape == (3 * 32, 3)
 
 
 def test_cfg_model_builds_the_atlas():

@@ -575,3 +575,143 @@ def test_slot_interp_function_grads_and_launches(dev):
     g.square().sum().backward()
     assert ti._GridInterpPerPoint.recomputes == before + 1
     assert st.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# The encoder: its residual passes run the interp and decode kernels, its
+# pretraining the table-only interp backward.
+# ---------------------------------------------------------------------------
+
+def _encoder_case(dev, seed=0, n=30000):
+    """A GridNet of demo/encoder_init.py's width (2 levels of F=4 over a
+    6 x 5 x 3.5 m bound, 1.0 m / 0.25 m cells, 8 -> 32 -> 32 -> 1 fixed
+    decoder, random features), its encoder, and an observation (a tenth of
+    the points outside the bound); the same on the CPU."""
+    from miso_tpu_torch.models.encoder import Encoder, EncoderObservation
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.05,
+                    "bound": [[-3.0, 3.0], [-2.5, 2.5], [-0.5, 3.0]],
+                    "base_cell_size": 1.0, "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": True, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 4}}
+    grid = create_grid_net(cfg, generator=torch.Generator().manual_seed(seed), device=dev)
+    encoder = Encoder({"model": cfg}, generator=torch.Generator().manual_seed(seed + 1),
+                      trunc_dist=0.2, device=dev)
+    r = np.random.default_rng(seed)
+    b = np.asarray(cfg["grid"]["bound"], np.float32)
+    ext = b[:, 1] - b[:, 0]
+    obs_np = dict(coords_world=(b[:, 0] - 0.05 * ext + r.uniform(0, 1.1, (n, 3)) * ext),
+                  gt_sdf=r.uniform(-0.4, 0.4, (n, 1)),
+                  gt_sdf_sign=(r.uniform(size=(n, 1)) < 0.3),
+                  gt_sdf_valid=(r.uniform(size=(n, 1)) < 0.7))
+
+    def obs(device):
+        return EncoderObservation(**{k: torch.as_tensor(v.astype(np.float32), device=device)
+                                     for k, v in obs_np.items()})
+
+    cpu_grid = copy.deepcopy(grid).cpu()
+    cpu_encoder = copy.deepcopy(encoder)
+    cpu_encoder.level_params = copy.deepcopy(encoder.level_params).cpu()
+    return grid, encoder, obs(dev), cpu_grid, cpu_encoder, obs("cpu")
+
+
+def _zero_encoder_counts():
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import (_GridInterp, grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda)
+    grid_interpolate_cuda.launches = mlp_decode_cuda.launches = 0
+    grid_interpolate_grad_cuda.launches = grid_interpolate_grad_cuda.points_launches = 0
+    _GridInterp.recomputes = 0
+
+
+def _encoder_counts():
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import (_GridInterp, grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda)
+    return dict(interp=grid_interpolate_cuda.launches, decode=mlp_decode_cuda.launches,
+                interp_grad=grid_interpolate_grad_cuda.launches,
+                interp_points_grad=grid_interpolate_grad_cuda.points_launches,
+                recompute=_GridInterp.recomputes)
+
+
+@pytest.mark.parametrize("allow_tf32", [False, True], ids=["fp32_flags", "tf32_default"])
+def test_encoder_prediction_matches_plain_and_launches(dev, allow_tf32, monkeypatch):
+    """The one-shot prediction on the card against the plain ops on the CPU
+    (1e-4), with one interp forward per level and one decode per residual
+    pass.  With ``allow_tf32`` as PyTorch ships it for cuDNN (True), and the
+    matmul flag True too, every convolution the encoder launches sees both
+    flags off (recorded inside ``F.conv3d``), and the encoder leaves the
+    flags as it found them."""
+    grid, encoder, obs, cpu_grid, cpu_encoder, cpu_obs = _encoder_case(dev)
+    seen = []
+    conv3d = torch.nn.functional.conv3d
+
+    def recording_conv3d(*args, **kwargs):
+        seen.append((torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32))
+        return conv3d(*args, **kwargs)
+
+    monkeypatch.setattr(torch.nn.functional, "conv3d", recording_conv3d)
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        _zero_encoder_counts()
+        got = encoder.predict_corrections(encoder.register_grid_model(grid), obs)
+        torch.cuda.synchronize()
+        counts = _encoder_counts()
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == \
+            (allow_tf32, allow_tf32)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+    assert seen and set(seen) == {(False, False)}, seen
+    ref = cpu_encoder.predict_corrections(cpu_encoder.register_grid_model(cpu_grid), cpu_obs)
+    for g, r in zip(got, ref):
+        torch.testing.assert_close(g.cpu(), r, atol=1e-4, rtol=1e-4)
+    L = grid.num_levels
+    assert counts == dict(interp=L * L, decode=L, interp_grad=0, interp_points_grad=0,
+                          recompute=0)
+
+
+def test_encoder_pretrain_gradients_match_plain_and_launches(dev):
+    """encoder_pretrain_loss at target level 1 and the target level's
+    gradients on the card against the CPU's: 3 residual passes (2 interp
+    forwards and a decode each) and one table-only interp backward."""
+    from miso_tpu_torch.models.encoder import encoder_pretrain_loss
+    grid, encoder, obs, cpu_grid, cpu_encoder, cpu_obs = _encoder_case(dev, seed=3)
+    n = obs.coords_world.shape[0]
+    ids = torch.zeros((n,), dtype=torch.int32)
+    batch = {"coords_frame": cpu_obs.coords_world, "sample_frame_ids": ids,
+             "sdf": cpu_obs.gt_sdf, "sdf_signs": cpu_obs.gt_sdf_sign,
+             "sdf_valid": cpu_obs.gt_sdf_valid}
+    out = {}
+    for name, levels, g, device in (("cuda", encoder.level_params, grid, dev),
+                                    ("cpu", cpu_encoder.level_params, cpu_grid, "cpu")):
+        _zero_encoder_counts()
+        b = {k: v.to(device) for k, v in batch.items()}
+        d = encoder_pretrain_loss(levels, g, b, None, 1, trunc_dist=0.2, sign_weight=1e2,
+                                  pred_std=0.0)
+        loss = sum(torch.mean(v) for v in d.values())
+        grads = torch.autograd.grad(loss, list(levels[1].parameters()))
+        if name == "cuda":
+            torch.cuda.synchronize()
+            assert _encoder_counts() == dict(interp=6, decode=3, interp_grad=1,
+                                             interp_points_grad=0, recompute=0)
+        out[name] = (loss.detach().cpu(), [v.cpu() for v in grads])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=1e-4)
+    for g, r in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(g, r, atol=1e-4 * float(r.abs().max()), rtol=0)
+
+
+def test_grid_pool_avg_on_the_card_matches_the_cpu(dev):
+    """index_add on the card accumulates with float atomics, so each cell's
+    sum is taken in a run-dependent order: values to 1e-5."""
+    from miso_tpu_torch.ops.pooling import grid_pool_avg
+    r = np.random.default_rng(4)
+    coords = torch.as_tensor(r.uniform(-3.5, 3.5, (200000, 3)).astype(np.float32))
+    feats = torch.as_tensor(r.normal(size=(200000, 3)).astype(np.float32))
+    bound = torch.tensor([[-3.0, 3.0], [-2.5, 2.5], [-0.5, 3.0]])
+    for cell in (1.0, 0.25):
+        got = grid_pool_avg(coords.to(dev), feats.to(dev), bound.to(dev), cell)
+        torch.testing.assert_close(got.cpu(), grid_pool_avg(coords, feats, bound, cell),
+                                   atol=1e-5, rtol=1e-5)

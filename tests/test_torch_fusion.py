@@ -320,7 +320,7 @@ def test_trim_and_scatter_roundtrip():
     assert torch.equal(ta.params.kf_rot_corr[:3], t.kf_rot_corr)
 
 
-@pytest.mark.parametrize("name", ["MisoFusion", "PosedSdf3DSubmap"])
+@pytest.mark.parametrize("name", ["MisoFusion", "PosedSdf3DSubmap", "iSDFSubmap"])
 def test_cfg_atlas_losses_match_jax(atlases, name):
     """The config registry's atlas losses, built from the same config."""
     ja, ta = atlases

@@ -343,10 +343,15 @@ def test_breakdown_and_device_trace(tmp_path, capsys):
 
 
 def test_encoder_init_raises(seqs):
+    """Encoder init runs at start-up (tests/test_torch_local_opt.py holds it
+    to the JAX package's); an encoder with fewer levels than the atlas's
+    grids raises there."""
+    from miso_tpu_torch.models.encoder import Encoder
     cfg = config(dry=True, submap_init_mode="encode")
     atlas = GridAtlas(MODEL_CFG, max_kfs_per_submap=3, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 5"):
-        t_system.System(atlas, seqs[0], seqs[0], cfg, encoder=object())
+    one_level = {"model": {"grid": dict(MODEL_CFG["grid"], n_levels=1)}}
+    with pytest.raises(ValueError, match="the encoder has 1 levels; 2 asked for"):
+        t_system.System(atlas, seqs[0], seqs[0], cfg, encoder=Encoder(one_level, device="cpu"))
 
 
 def test_kitti_poses_match_jax(tmp_path):
