@@ -19,6 +19,12 @@ pairs of 2^15 points or fewer after subsampling) its tensors take a few MB.
 The unrolled per-pair losses (``pairwise_loss_*``, ``vmap_pairs=False``)
 query one slot at a time and serve as the reference of the flat one.
 
+InfoNCE's per-pair softmax is not a sum over points, so the flat loss
+refuses it and the hierarchical alignment sends it through
+:func:`make_vmapped_pair_loss` (the JAX package's vmap over the pair axis):
+every pair's points go through the same per-point slot-id queries, and each
+pair keeps its own (N, N) softmax, one batched product for all pairs.
+
 Randomness: a pair's subsample is drawn from a ``torch.Generator`` seeded by
 (seed, src, dst) (:class:`PairGenerators`), fresh at every iteration: the
 JAX package's distribution, not its bits.
@@ -26,8 +32,7 @@ JAX package's distribution, not its bits.
 Not ported, and raising where a call asks for them: the scanned solve, its
 segments, the solve and loss caches and ``aot_only`` (TPU dispatch and
 compile means, with no counterpart); the ``mesh``/``pair_axis`` sharding
-(ROADMAP Queue 1 item 7); ``make_vmapped_pair_loss`` and the InfoNCE loss
-(item 5, with ``info_nce_loss``).
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -37,17 +42,13 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from miso_tpu_torch.losses.common import gm_weighted_sq
+from miso_tpu_torch.losses.common import gm_weighted_sq, info_nce_loss
 from miso_tpu_torch.models.base import relative_param_change
 from miso_tpu_torch.models.grid_atlas import GridAtlas, GridAtlasParams, grid_atlas_mask
 from miso_tpu_torch.ops import se3
 from miso_tpu_torch.train.optim import masked_adam_init
 from miso_tpu_torch.train.trainer import make_train_step
 from miso_tpu_torch.utils.profiling import synchronize
-
-_INFO_NCE = ("the InfoNCE alignment loss and make_vmapped_pair_loss are not ported yet "
-             "(ROADMAP Queue 1 item 5, with losses/common.py::info_nce_loss)")
-
 
 class PairGenerators:
     """One ``torch.Generator`` per (src, dst) pair on ``device``, seeded by
@@ -136,8 +137,6 @@ def _pair_mask(qf, qt, coords_from, coords_to, valid_from, use_bound, stability_
 def _latent_pair_core(params, qf, qt, src, dst, level, coords_from, valid_from, align_loss,
                       use_bound, stability_thresh, trunc_factor, gen, subsample_points):
     """Latent residual of one pair over channels [0, F * (level + 1))."""
-    if align_loss == "InfoNCE":
-        raise NotImplementedError(_INFO_NCE)
     end_ch = params.fdim * (level + 1)
     coords_from, valid_from = _subsample(coords_from, valid_from, gen, subsample_points)
     coords_to = _pair_points(params, coords_from, src, dst)
@@ -158,6 +157,8 @@ def _latent_pair_core(params, qf, qt, src, dst, level, coords_from, valid_from, 
         den = (torch.linalg.vector_norm(f_from, dim=1, keepdim=True)
                * torch.linalg.vector_norm(f_to, dim=1, keepdim=True))
         return torch.sum(mask * (1.0 - num / torch.clamp(den, min=1e-8))) / count
+    if align_loss == "InfoNCE":
+        return info_nce_loss(f_from, f_to, mask)
     raise ValueError(f"Invalid align loss: {align_loss}")
 
 
@@ -165,8 +166,6 @@ def _sdf_pair_core(params, qf, qt, src, dst, coords_from, valid_from, align_loss
                    stability_thresh, gm_scale_sdf, gen, subsample_points):
     """SDF residual of one pair: both submaps' decoded fields at the shared
     points."""
-    if align_loss == "InfoNCE":
-        raise NotImplementedError(_INFO_NCE)
     coords_from, valid_from = _subsample(coords_from, valid_from, gen, subsample_points)
     coords_to = _pair_points(params, coords_from, src, dst)
     mask = _pair_mask(qf, qt, coords_from, coords_to, valid_from, use_bound, stability_thresh)
@@ -206,11 +205,6 @@ def pairwise_loss_sdf(params: GridAtlasParams, atlas: GridAtlas, src: int, dst: 
     return {f"align_sdf_{src}_{dst}": loss * align_weight}
 
 
-def make_vmapped_pair_loss(*args, **kwargs):
-    """The JAX package's vmapped pair loss; not ported (see the module note)."""
-    raise NotImplementedError(_INFO_NCE)
-
-
 def _safe_norm(v, dim, keepdim=False):
     """The vector norm with a zero gradient (not NaN) at a zero vector: masked
     rows and exactly agreeing features give zero vectors, and 0 * NaN would
@@ -231,7 +225,7 @@ class FlatPairLoss:
                  stability_thresh=0.0, trunc_factor=None, gm_scale_sdf=0.1,
                  subsample_points=None):
         if align_loss == "InfoNCE":
-            raise NotImplementedError(_INFO_NCE)
+            raise ValueError("InfoNCE alignment uses make_vmapped_pair_loss")
         latent = {"L2", "L1", "cos"}
         if align_loss not in (latent if kind == "latent" else {"L2", "L1", "GM"}):
             raise ValueError(f"Invalid align loss: {align_loss}")
@@ -346,6 +340,109 @@ def make_flat_pair_loss(kind: str, level: Optional[int] = None, align_weight=300
     :class:`FlatPairLoss`."""
     return FlatPairLoss(kind, level, align_weight, align_loss, use_bound, stability_thresh,
                         trunc_factor, gm_scale_sdf, subsample_points)
+
+
+class VmappedPairLoss:
+    """Each pair's own loss, summed over the pairs (see the module note).
+
+    Same context and call as :class:`FlatPairLoss` (``loss(params, gens,
+    ctx)``, ``ctx`` a :class:`PairContext`), with no precomputed source terms:
+    the pairs' points, subsampled per pair as the flat and unrolled losses
+    draw them, go through the per-point queries in one batch; the poses move
+    each pair's (N, 3) block by its own (src, dst) poses and every reduction
+    stays per pair, so pair i gives the unrolled ``pairwise_loss_*`` of that
+    pair.  An inert pad pair (no valid point) gives exactly 0."""
+
+    def __init__(self, kind, level=None, align_weight=3000.0, align_loss="L2", use_bound=True,
+                 stability_thresh=0.0, trunc_factor=None, gm_scale_sdf=0.1,
+                 subsample_points=None):
+        allowed = {"L2", "L1", "cos", "InfoNCE"} if kind == "latent" else {"L2", "L1", "GM"}
+        if align_loss not in allowed:
+            raise ValueError(f"Invalid align loss: {align_loss}")
+        self.kind, self.level = kind, level
+        self.align_weight, self.align_loss = align_weight, align_loss
+        self.use_bound, self.stability_thresh = use_bound, stability_thresh
+        self.trunc_factor, self.gm_scale_sdf = trunc_factor, gm_scale_sdf
+        self.subsample_points = subsample_points
+        self.name = f"align_latent_level{level}" if kind == "latent" else f"align_sdf_{align_loss}"
+
+    def pair_losses(self, params: GridAtlasParams, gens: Optional[PairGenerators],
+                    ctx: PairContext) -> torch.Tensor:
+        """(P,) per-pair losses, unweighted."""
+        coords, valid = ctx.coords, ctx.valid
+        P, N, d = coords.shape
+        dev = coords.device
+        M = self.subsample_points
+        if M is not None and gens is not None:
+            # Drawn on the generators' device: CPU generators give a card run
+            # the CPU run's draws.
+            idx = torch.stack([torch.randperm(N, generator=gens.get(s, t),
+                                              device=gens.device)[:min(M, N)]
+                               for s, t in ctx.pairs]).to(dev)
+            rows = torch.arange(P, device=dev)[:, None]
+            coords, valid = coords[rows, idx], valid[rows, idx]
+            N = idx.shape[1]
+        src, dst = ctx.src_ids.long(), ctx.dst_ids.long()
+        ids_src, ids_dst = ctx.src_ids.repeat_interleave(N), ctx.dst_ids.repeat_interleave(N)
+        R, t = params.updated_submap_poses()
+        coords_to = se3.transform_points_from(se3.transform_points_to(coords, R[src], t[src]),
+                                              R[dst], t[dst])
+        pts_to = coords_to.reshape(P * N, d)
+        pts = coords.reshape(P * N, d)
+
+        def per_pair(x):   # (P * N, C) -> (P, N, C)
+            return x.reshape(P, N, x.shape[-1])
+
+        mask = valid
+        if self.use_bound:
+            b = params.bounds[dst][:, None]                                   # (P, 1, d, 2)
+            inside = (coords_to >= b[..., 0]) & (coords_to <= b[..., 1])
+            mask = mask * torch.all(inside, dim=-1, keepdim=True).to(coords.dtype)
+        if self.stability_thresh > 0:
+            mu_to = per_pair(params.query_stability_per_point(ids_dst, pts_to)[:, :1])
+            mu_from = per_pair(params.query_stability_per_point(ids_src, pts)[:, :1])
+            mask = mask * (mu_to > self.stability_thresh) * (mu_from > self.stability_thresh)
+        count = torch.clamp(torch.sum(mask, dim=(1, 2)), min=1.0)            # (P,)
+        loss = self.align_loss
+        if self.kind == "latent":
+            end_ch = params.fdim * (self.level + 1)
+            if self.trunc_factor is not None:
+                sdf_from = per_pair(params.forward_per_point(ids_src, pts))
+                mask = mask * (torch.abs(sdf_from) < self.trunc_factor
+                               * params.cell_sizes[self.level])
+                count = torch.clamp(torch.sum(mask, dim=(1, 2)), min=1.0)
+            f_from = per_pair(params.query_feature_per_point(ids_src, pts)[:, :end_ch])
+            f_to = per_pair(params.query_feature_per_point(ids_dst, pts_to)[:, :end_ch])
+            if loss == "InfoNCE":
+                return info_nce_loss(f_from, f_to, mask)
+            c = f_from - f_to
+            if loss == "L2":
+                return torch.sum(mask * c ** 2, dim=(1, 2)) / (count * end_ch)
+            if loss == "L1":
+                return torch.sum(mask[..., 0] * _safe_norm(c, dim=-1), dim=1) / count
+            num = torch.sum(f_from * f_to, dim=-1, keepdim=True)
+            den = _safe_norm(f_from, dim=-1, keepdim=True) * _safe_norm(f_to, dim=-1, keepdim=True)
+            return torch.sum(mask * (1.0 - num / torch.clamp(den, min=1e-8)), dim=(1, 2)) / count
+        c = per_pair(params.forward_per_point(ids_src, pts)
+                     - params.forward_per_point(ids_dst, pts_to))
+        if loss == "L2":
+            return torch.sum(mask * c ** 2, dim=(1, 2)) / count
+        if loss == "L1":
+            return torch.sum(mask[..., 0] * _safe_norm(c, dim=-1), dim=1) / count
+        return torch.sum(mask * gm_weighted_sq(c, self.gm_scale_sdf), dim=(1, 2)) / count
+
+    def __call__(self, params: GridAtlasParams, gens: Optional[PairGenerators],
+                 ctx: PairContext):
+        return {self.name: torch.sum(self.pair_losses(params, gens, ctx)) * self.align_weight}
+
+
+def make_vmapped_pair_loss(kind: str, level: Optional[int] = None, align_weight=3000.0,
+                           align_loss="L2", use_bound=True, stability_thresh=0.0,
+                           trunc_factor=None, gm_scale_sdf=0.1, subsample_points=None):
+    """The batched pair loss with each pair's reduction its own: a
+    :class:`VmappedPairLoss` (every loss kind; InfoNCE only here)."""
+    return VmappedPairLoss(kind, level, align_weight, align_loss, use_bound, stability_thresh,
+                           trunc_factor, gm_scale_sdf, subsample_points)
 
 
 def atlas_pose_trust_region_loss(params: GridAtlasParams, thresh_rad, thresh_m, weight=1e3):
@@ -500,10 +597,13 @@ def align_multiple_submaps_hierarchical(
     (every pair by default) whose bounds intersect.
 
     ``vmap_pairs`` (the default): the flat batched loss
-    (:func:`make_flat_pair_loss`) over the pair list padded to the next
+    (:func:`make_flat_pair_loss`; for InfoNCE the vmapped one,
+    :func:`make_vmapped_pair_loss`) over the pair list padded to the next
     power of two of all pairs with inert pairs (src = dst = 0, no valid
     point: zero loss and gradient), as the JAX package pads it; False: the
-    unrolled per-pair losses.  ``max_align_points`` caps the alignment
+    unrolled per-pair losses.  InfoNCE has no SDF form: with the finetune on
+    it raises ``ValueError`` once the latent levels are done, as the JAX
+    package does.  ``max_align_points`` caps the alignment
     coordinates per (submap, level) (the Fuser's ``align.max_points``); None
     takes every vertex over the norm threshold.  Returns per-stage timings.
     """
@@ -513,8 +613,6 @@ def align_multiple_submaps_hierarchical(
     if aot_only:
         raise NotImplementedError("aot_only compiles the JAX package's alignment without "
                                   "running it, a TPU compile means with no counterpart here")
-    if align_loss == "InfoNCE":
-        raise NotImplementedError(_INFO_NCE)
     dev = atlas.device
     t_pre = time.perf_counter()
     atlas.precompute_coordinates_for_alignment(max_points=max_align_points)
@@ -536,7 +634,9 @@ def align_multiple_submaps_hierarchical(
 
     def pair_ctx(level_, loss_fn):
         t_c = time.perf_counter()
-        ctx = loss_fn.precompute_src(atlas.params, pair_context(atlas, level_, pairs, rows))
+        ctx = pair_context(atlas, level_, pairs, rows)
+        if isinstance(loss_fn, FlatPairLoss):
+            ctx = loss_fn.precompute_src(atlas.params, ctx)
         synchronize(dev)
         ctx_secs.append(time.perf_counter() - t_c)
         return ctx
@@ -545,9 +645,11 @@ def align_multiple_submaps_hierarchical(
                   pose_reg_weight=pose_reg_weight, pose_thresh_rad=pose_thresh_rad,
                   pose_thresh_m=pose_thresh_m, verbose=verbose, save_iterations=save_iterations,
                   batched_loss=vmap_pairs)
+    # The flat loss unless the loss needs each pair's own softmax (InfoNCE).
+    make_batched = make_vmapped_pair_loss if align_loss == "InfoNCE" else make_flat_pair_loss
     for level in latent_levels:
         if vmap_pairs:
-            pair_loss = make_flat_pair_loss("latent", level=level, align_weight=align_weight,
+            pair_loss = make_batched("latent", level=level, align_weight=align_weight,
                                             align_loss=align_loss, use_bound=use_bound,
                                             stability_thresh=stability_thresh,
                                             subsample_points=subsample_points)
@@ -569,7 +671,9 @@ def align_multiple_submaps_hierarchical(
         sdf_align_loss = "L2" if align_loss == "cos" else align_loss
         finest = atlas.num_levels - 1
         if vmap_pairs:
-            pair_loss_sdf = make_flat_pair_loss("sdf", align_weight=align_weight,
+            make_batched = (make_vmapped_pair_loss if sdf_align_loss == "InfoNCE"
+                            else make_flat_pair_loss)
+            pair_loss_sdf = make_batched("sdf", align_weight=align_weight,
                                                 align_loss=sdf_align_loss, use_bound=use_bound,
                                                 stability_thresh=stability_thresh,
                                                 gm_scale_sdf=gm_scale_sdf,

@@ -287,6 +287,24 @@ def _register_builtins():
                           num_frames=d.get("num_frames", 64),
                           trunc_dist=d.get("trunc_dist", 0.15))
 
+    @register_dataset("PosedSdf3DLidar")
+    def _d_lidar(cfg):
+        from miso_tpu_torch.datasets.lidar import PosedSdf3DLidar
+        return PosedSdf3DLidar(cfg)
+
+    @register_dataset("ScanNet")
+    def _d_scannet(cfg):
+        from miso_tpu_torch.datasets.scannet import ScanNet
+        return ScanNet(cfg)
+
+    @register_dataset("ReplicaCAD")
+    def _d_replica(cfg):
+        from miso_tpu_torch.datasets.replica import ReplicaCAD
+        return ReplicaCAD(cfg)
+
+    @register_dataset("FastCaMo")
+    def _d_fastcamo(cfg):
+        from miso_tpu_torch.datasets.fastcamo import FastCaMo
+        return FastCaMo(cfg)
+
     DATASET_REGISTRY["Sdf2D"] = _not_ported("Sdf2D", "item 6 (2D grids)")
-    for name in ("PosedSdf3DLidar", "ScanNet", "ReplicaCAD", "FastCaMo"):
-        DATASET_REGISTRY[name] = _not_ported(f"The {name} dataset", "item 2")

@@ -152,19 +152,22 @@ def pose_trust_region_loss(rot_corr, trans_corr, thresh_rad, thresh_m, weight=1e
 
 def info_nce_loss(query, positive, mask=None, temperature=0.1):
     """InfoNCE between per-point feature pairs: each query's positive is its
-    own row of ``positive``, every other row a negative.  ``mask`` (N,) or
-    (N, 1) drops rows from both the anchors and the negatives."""
-    q = query / (torch.linalg.vector_norm(query, dim=1, keepdim=True) + 1e-8)
-    p = positive / (torch.linalg.vector_norm(positive, dim=1, keepdim=True) + 1e-8)
-    logits = q @ p.T / temperature                      # (N, N)
+    own row of ``positive``, every other row a negative.  ``mask`` (..., N) or
+    (..., N, 1) drops rows from both the anchors and the negatives.
+
+    query, positive: (N, D) give one loss; (B, N, D) give B independent
+    losses (B,), one (N, N) softmax each (the alignment's per-pair loss).  A
+    batch with no unmasked row gives exactly 0 and a zero gradient."""
+    q = query / (torch.linalg.vector_norm(query, dim=-1, keepdim=True) + 1e-8)
+    p = positive / (torch.linalg.vector_norm(positive, dim=-1, keepdim=True) + 1e-8)
+    logits = torch.matmul(q, p.transpose(-1, -2)) / temperature        # (..., N, N)
     if mask is not None:
-        logits = torch.where(mask.reshape(1, -1) > 0, logits,
-                             torch.full_like(logits, -1e9))
-    nll = -torch.diagonal(torch.log_softmax(logits, dim=1))[:, None]
+        m = mask.reshape(query.shape[:-1]).to(logits.dtype)
+        logits = torch.where(m.unsqueeze(-2) > 0, logits, torch.full_like(logits, -1e9))
+    nll = -torch.diagonal(torch.log_softmax(logits, dim=-1), dim1=-2, dim2=-1)   # (..., N)
     if mask is None:
-        return torch.mean(nll)
-    m = mask.reshape(-1, 1).to(nll.dtype)
-    return torch.sum(nll * m) / torch.clamp(torch.sum(m), min=1.0)
+        return torch.mean(nll, dim=-1)
+    return torch.sum(nll * m, dim=-1) / torch.clamp(torch.sum(m, dim=-1), min=1.0)
 
 
 def total_loss(loss_dict):

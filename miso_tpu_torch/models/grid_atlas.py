@@ -62,6 +62,12 @@ def fold_stacked(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], t.shape[1], -1)
 
 
+def unfold_stacked(t, pad_spatial: Sequence[int], fdim: int):
+    """Inverse of :func:`fold_stacked`: (S, g0, g1*...*F) -> (S, *pad_spatial,
+    fdim), a view of the same storage (torch tensors and numpy arrays)."""
+    return t.reshape(t.shape[0], *pad_spatial, fdim)
+
+
 class GridAtlasParams:
     """The atlas's tensors (all on one device) and static settings.
 
@@ -652,6 +658,30 @@ class GridAtlas:
     def get_submap(self, s: int) -> GridNet:
         """Submap s as a GridNet of contiguous copies at its logical shapes."""
         return self.params.submap(s, self._submap_shapes[s], self._anchor_kf[s])
+
+    def copy_to(self, device) -> "GridAtlas":
+        """An independent copy of the atlas (its tensors, structure and
+        alignment coordinates) on ``device``."""
+        device = _check_device(device)
+
+        def moved(v):
+            if isinstance(v, torch.Tensor):
+                return v.detach().to(device).clone()
+            if isinstance(v, (list, tuple)):
+                return type(v)(moved(x) for x in v)
+            if isinstance(v, dict):
+                return {k: moved(x) for k, x in v.items()}
+            return v
+
+        out = copy.copy(self)
+        for k, v in vars(self).items():
+            if k != "params":
+                setattr(out, k, moved(v))
+        out.device = device
+        if self.params is not None:
+            out.params = self.params.replace(**{k: moved(v) for k, v in vars(self.params).items()
+                                                if isinstance(v, (torch.Tensor, list, tuple))})
+        return out
 
     def set_submap(self, s: int, grid: GridNet):
         self.params.with_submap(s, grid)

@@ -1,1 +1,2 @@
-"""Meshing, SDF fields and reconstruction metrics."""
+"""Meshing, SDF fields and sphere tracing, ray sampling, reconstruction
+metrics and ICP, profiling, and the ScanNet and Newer College eval helpers."""

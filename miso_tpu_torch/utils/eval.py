@@ -1,11 +1,12 @@
 """Reconstruction and trajectory metrics (port of ``miso_tpu/utils/eval.py``):
 Chamfer / MAE accuracy and completeness / precision / recall / F-score with
 scipy's cKDTree, and the absolute trajectory error after a Umeyama
-alignment.  ICP waits for the atlas slice.
+alignment, and point-to-point and point-to-plane ICP (host float64 with
+cKDTree correspondences).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 from scipy.spatial import cKDTree
@@ -118,3 +119,81 @@ def trajectory_error(traj_est: np.ndarray, traj_gt: np.ndarray,
         out["rot_rmse_deg"] = float(se3.rotation_rmse_deg(
             R_est, torch.as_tensor(gt[:, :3, :3], dtype=torch.float32)))
     return out
+
+
+def icp_point_to_point(src: np.ndarray, dst: np.ndarray, init_T: Optional[np.ndarray] = None,
+                       max_iters: int = 50, max_corr_dist: float = 0.5, tol: float = 1e-6,
+                       robust_k: Optional[float] = None):
+    """Point-to-point ICP in float64: nearest-neighbour correspondences under
+    ``max_corr_dist`` (and ``robust_k``, a hard robust cut), a Umeyama step
+    each iteration, until the mean squared distance changes by less than
+    ``tol``.  Returns (T (4, 4), rmse, fitness)."""
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    T = np.eye(4) if init_T is None else np.asarray(init_T, np.float64).copy()
+    tree = cKDTree(dst)
+    prev_err = np.inf
+    rmse, fitness = np.inf, 0.0
+    for _ in range(max_iters):
+        cur = src @ T[:3, :3].T + T[:3, 3]
+        d, idx = tree.query(cur, k=1, workers=-1)
+        mask = d < max_corr_dist
+        if robust_k is not None:
+            mask &= d < robust_k
+        if mask.sum() < 3:
+            break
+        R, t, _ = umeyama_alignment(cur[mask], dst[idx[mask]])
+        dT = np.eye(4)
+        dT[:3, :3] = R
+        dT[:3, 3] = t
+        T = dT @ T
+        err = float((d[mask] ** 2).mean())
+        rmse = float(np.sqrt(err))
+        fitness = float(mask.mean())
+        if abs(prev_err - err) < tol:
+            break
+        prev_err = err
+    return T, rmse, fitness
+
+
+def icp_point_to_plane(src: np.ndarray, dst: np.ndarray, dst_normals: np.ndarray,
+                       init_T: Optional[np.ndarray] = None, max_iters: int = 50,
+                       max_corr_dist: float = 0.5, tol: float = 1e-8):
+    """Point-to-plane ICP: each iteration minimises sum(((R p + t - q) . n_q)^2)
+    linearised in a small rotation (a 6x6 Gauss-Newton solve in float64).  The
+    step's rotation is ``se3.so3_exp`` in float32, as the JAX package builds
+    it.  Returns (T (4, 4), rmse, fitness)."""
+    import torch
+
+    from miso_tpu_torch.ops import se3
+
+    src = np.asarray(src, np.float64)
+    dst = np.asarray(dst, np.float64)
+    n_all = np.asarray(dst_normals, np.float64)
+    T = np.eye(4) if init_T is None else np.asarray(init_T, np.float64).copy()
+    tree = cKDTree(dst)
+    prev_err = np.inf
+    rmse, fitness = np.inf, 0.0
+    for _ in range(max_iters):
+        cur = src @ T[:3, :3].T + T[:3, 3]
+        d, idx = tree.query(cur, k=1, workers=-1)
+        mask = d < max_corr_dist
+        if mask.sum() < 6:
+            break
+        P = cur[mask]
+        Q = dst[idx[mask]]
+        N = n_all[idx[mask]]
+        r = np.einsum("ij,ij->i", P - Q, N)
+        J = np.concatenate([np.cross(P, N), N], axis=1)   # d r / d(omega, t)
+        x = np.linalg.solve(J.T @ J + 1e-9 * np.eye(6), -J.T @ r)
+        dT = np.eye(4)
+        dT[:3, :3] = se3.so3_exp(torch.as_tensor(x[:3], dtype=torch.float32)).numpy()
+        dT[:3, 3] = x[3:]
+        T = dT @ T
+        err = float((r ** 2).mean())
+        rmse = float(np.sqrt((d[mask] ** 2).mean()))
+        fitness = float(mask.mean())
+        if abs(prev_err - err) < tol:
+            break
+        prev_err = err
+    return T, rmse, fitness

@@ -1,6 +1,7 @@
-"""SDF field extraction and meshing (port of ``miso_tpu/utils/sdf.py``:
-``extract_fields``, ``extract_geometry``, ``save_mesh``, ``observed_sdf_query``,
-PLY IO).
+"""SDF field extraction, meshing and sphere tracing (port of
+``miso_tpu/utils/sdf.py``: the label masks, ``extract_fields``,
+``extract_geometry``, ``save_mesh``, ``observed_sdf_query``, PLY IO and
+``sphere_tracing``).
 
 Field evaluation is a chunked loop on the device: each chunk's lattice
 points are made on the device, the query runs under ``torch.no_grad()``,
@@ -8,8 +9,8 @@ and the values stay on the device until the whole lattice is done.
 Marching cubes runs in the native C++ runtime.  The JAX package's scan
 bucketing, watchdog budget, ``prewarm_extract_fields`` and
 ``_forward_only_query`` are TPU dispatch and compile means with no
-counterpart here; bf16 feature storage (``cast_feature_storage``) and
-``sphere_tracing`` wait for a later slice.
+counterpart here; bf16 feature storage (``cast_feature_storage``) waits for
+a later slice.
 """
 from __future__ import annotations
 
@@ -18,6 +19,17 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+
+def sign_mask_from_gt_sdf(gt_sdf, trunc_dist=0.15):
+    """1 where the label says free space beyond the truncation (sdf > trunc),
+    else 0, in the label's dtype."""
+    return (gt_sdf > trunc_dist).to(gt_sdf.dtype)
+
+
+def valid_mask_from_gt_sdf(gt_sdf, trunc_dist=0.15):
+    """1 where the label lies inside the truncation band (|sdf| < trunc)."""
+    return (torch.abs(gt_sdf) < trunc_dist).to(gt_sdf.dtype)
 
 
 def _query_device(query_func) -> torch.device:
@@ -199,3 +211,24 @@ def read_ply(path: str):
     fdtype = np.dtype([("n", "u1"), ("idx", "<i4", (3,))])
     farr = np.frombuffer(body, dtype=fdtype, count=nf, offset=offset)
     return verts, farr["idx"].astype(np.int32).copy()
+
+
+@torch.no_grad()
+def sphere_tracing(query_func, origins: torch.Tensor, directions: torch.Tensor, min_dist=1e-3,
+                   max_dist=50.0, max_iters=100, epsilon=1e-5):
+    """Sphere-trace rays (N, 3) against an SDF ``query_func`` ((N, 3) -> (N, 1)
+    or (N,)): ``max_iters`` steps of the queried distance along each unit
+    direction, a ray frozen once its value is under ``epsilon`` or it is
+    farther than ``max_dist`` from its origin, then one last query.  A fixed
+    step count, as the JAX package's loop has.  Returns (points (N, 3),
+    hit_mask (N, 1) bool)."""
+    directions = directions / (torch.linalg.vector_norm(directions, dim=-1, keepdim=True)
+                               + 1e-12)
+    points = origins + min_dist * directions
+    stopped = torch.zeros((origins.shape[0], 1), dtype=torch.bool, device=origins.device)
+    for _ in range(max_iters):
+        sdfs = query_func(points).reshape(-1, 1)
+        far = torch.linalg.vector_norm(points - origins, dim=-1, keepdim=True) > max_dist
+        stopped = stopped | (sdfs < epsilon) | far
+        points = torch.where(stopped, points, points + sdfs * directions)
+    return points, query_func(points).reshape(-1, 1) < epsilon

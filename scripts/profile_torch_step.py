@@ -2,7 +2,7 @@
 """Where the port's steps spend their device time, on one CUDA card.
 
     python3 scripts/profile_torch_step.py
-        [mapping|mesh|slam|multisubmap|align|fuse|encode|all]
+        [mapping|mesh|slam|multisubmap|align|baselines|fuse|encode|all]
                                           [--steps N] [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
@@ -38,6 +38,13 @@ and N of its SDF finetune, each after 2 warm-up steps (one
 generic_align_multiple_submaps call of N steps: the slot-id forward and
 points-only backward at both levels over 38,400 points a pair, the decode in
 the finetune, the pose gather, Adam over the poses).
+
+``baselines``: chip_smoke.py phase 7's runs (b), (c) and (e) on the same
+atlas, submap 1 perturbed as phase 7 perturbs it: N steps each, after 2
+warm-up steps, of vfpp and of mips (demo/align_submaps.py's pair losses in
+generic_align_multiple_submaps, 4096 of 8192 observations a step) and of
+InfoNCE's latent level 1 (the vmapped pair loss, 4096 of 38,400 points a
+pair).
 
 ``fuse``: chip_smoke.py phase 6's quad run to its end, then its Fuser: N
 steps of the alignment's latent stage and N of its SDF finetune (8192 points
@@ -246,16 +253,24 @@ def profile_multisubmap(chip_smoke, steps):
     _profile_system(system, steps, ds_map.frame_batchsize)
 
 
-def _align_stage(atlas, kind, level, subsample_points, steps_label, lr, seed=0):
+def _align_stage(atlas, kind, level, subsample_points, steps_label, lr, seed=0,
+                 align_loss="L2"):
     """run(n): n steps of one alignment stage of ``atlas`` over its pairs, in
     one generic_align_multiple_submaps call (the hierarchical alignment's
-    flat pair loss and pair batch, source terms precomputed)."""
+    pair batch and its flat pair loss, source terms precomputed; InfoNCE's
+    vmapped loss)."""
     from miso_tpu_torch.align import miso as align
 
     pairs = [(i, j) for i in range(atlas.num_submaps) for j in range(i + 1, atlas.num_submaps)
              if atlas.check_submap_intersection(i, j)]
-    loss = align.make_flat_pair_loss(kind, level=level, subsample_points=subsample_points)
-    ctx = loss.precompute_src(atlas.params, align.pair_context(atlas, level, pairs))
+    ctx = align.pair_context(atlas, level, pairs)
+    if align_loss == "InfoNCE":
+        loss = align.make_vmapped_pair_loss(kind, level=level, align_loss=align_loss,
+                                            subsample_points=subsample_points)
+    else:
+        loss = align.make_flat_pair_loss(kind, level=level, align_loss=align_loss,
+                                         subsample_points=subsample_points)
+        ctx = loss.precompute_src(atlas.params, ctx)
 
     def run(n):
         align.generic_align_multiple_submaps(atlas, loss, num_iters=n - 1, lr=lr,
@@ -269,13 +284,41 @@ def _align_stage(atlas, kind, level, subsample_points, steps_label, lr, seed=0):
 def profile_align(chip_smoke, steps):
     """chip_smoke.py phase 7's alignment: steps of its latent level-1 stage
     and of its SDF finetune."""
-    atlas, _ = chip_smoke.build_align_atlas(torch.device("cuda"))
+    atlas = chip_smoke.build_align_atlas(torch.device("cuda"))[0]
     atlas.set_submap_pose_correction(1, [0.02, -0.03, 0.04], [0.1, -0.05, 0.08])
     atlas.precompute_coordinates_for_alignment()
     for kind, level, label in (("latent", 1, "alignment step, latent level 1"),
                                ("sdf", atlas.num_levels - 1, "alignment step, SDF finetune")):
         run, text = _align_stage(atlas, kind, level, None, label, chip_smoke.ALIGN_LR)
         breakdown(text, run, steps)
+
+
+def profile_baselines(chip_smoke, steps):
+    """chip_smoke.py phase 7's vfpp, mips and InfoNCE runs: steps of each."""
+    from miso_tpu_torch.align import miso as align
+
+    dev = torch.device("cuda")
+    atlas, _, observations = chip_smoke.build_align_atlas(dev)
+    chip_smoke.perturb_submaps(atlas)
+    rng = np.random.default_rng(0)
+    obs = {s: tuple(torch.as_tensor(v, device=dev)
+                    for v in observations(s, rng, chip_smoke.BASELINE_OBS))
+           for s in range(atlas.num_submaps)}
+    for method in ("vfpp", "mips"):
+        loss = chip_smoke.baseline_pair_loss(method, atlas)
+
+        def run(n, loss=loss):
+            align.generic_align_multiple_submaps(atlas, loss, num_iters=n - 1,
+                                                 lr=chip_smoke.ALIGN_LR, seed=0, loss_ctx=obs)
+
+        run(2)
+        breakdown(f"{method} step: 1 pair, {chip_smoke.BASELINE_SUBSAMPLE} of "
+                  f"{chip_smoke.BASELINE_OBS} observations", run, steps)
+    atlas.precompute_coordinates_for_alignment()
+    run, text = _align_stage(atlas, "latent", 1, chip_smoke.BASELINE_SUBSAMPLE,
+                             "InfoNCE step, latent level 1", chip_smoke.ALIGN_LR,
+                             align_loss="InfoNCE")
+    breakdown(text, run, steps)
 
 
 def profile_fuse(chip_smoke, steps):
@@ -391,8 +434,8 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="?", default="mapping",
-                    choices=("mapping", "mesh", "slam", "multisubmap", "align", "fuse",
-                             "encode", "all"))
+                    choices=("mapping", "mesh", "slam", "multisubmap", "align", "baselines",
+                             "fuse", "encode", "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -414,6 +457,8 @@ def main() -> int:
         profile_multisubmap(chip_smoke, args.steps)
     if which in ("align", "all"):
         profile_align(chip_smoke, args.steps)
+    if which in ("baselines", "all"):
+        profile_baselines(chip_smoke, args.steps)
     if which in ("fuse", "all"):
         profile_fuse(chip_smoke, args.steps)
     if which in ("encode", "all"):

@@ -439,9 +439,11 @@ def test_unported_alignment_options_raise(atlases):
     _, ta = atlases
     with pytest.raises(NotImplementedError, match="item 7"):
         t_align.align_multiple_submaps_hierarchical(ta, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_align.align_multiple_submaps_hierarchical(ta, align_loss="InfoNCE")
-    with pytest.raises(NotImplementedError, match="item 5"):
-        t_align.make_vmapped_pair_loss("latent", level=0)
+    # InfoNCE is ported; the JAX package's refusals stay: the flat loss and the
+    # SDF stage take no InfoNCE.
+    with pytest.raises(ValueError, match="make_vmapped_pair_loss"):
+        t_align.make_flat_pair_loss("latent", level=0, align_loss="InfoNCE")
+    with pytest.raises(ValueError, match="Invalid align loss"):
+        t_align.make_vmapped_pair_loss("sdf", align_loss="InfoNCE")
     with pytest.raises(NotImplementedError, match="TPU"):
         t_align.align_multiple_submaps_hierarchical(ta, aot_only=True)

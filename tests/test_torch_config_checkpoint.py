@@ -118,8 +118,7 @@ def test_cfg_loss_matches_jax(name):
 
 @pytest.mark.parametrize("kind,name", [
     ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
-    ("loss", "Sdf2D"), ("dataset", "Sdf2D"), ("dataset", "PosedSdf3DLidar"),
-    ("dataset", "ScanNet"), ("dataset", "ReplicaCAD"), ("dataset", "FastCaMo")])
+    ("loss", "Sdf2D"), ("dataset", "Sdf2D")])
 def test_unported_entries_raise(kind, name):
     cfg = _scannet()
     cfg[kind] = dict(cfg.get(kind, {}), name=name)

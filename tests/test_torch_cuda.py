@@ -715,3 +715,179 @@ def test_grid_pool_avg_on_the_card_matches_the_cpu(dev):
         got = grid_pool_avg(coords.to(dev), feats.to(dev), bound.to(dev), cell)
         torch.testing.assert_close(got.cpu(), grid_pool_avg(coords, feats, bound, cell),
                                    atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The alignment baselines, the vmapped InfoNCE loss and sphere tracing: the
+# interp and decode kernels on their paths, against the CPU.
+# ---------------------------------------------------------------------------
+
+def _baseline_atlas(seed=0):
+    """Two overlapping submaps (F=4, 2 levels, random features, a fixed
+    random decoder) on the CPU, submap 1 perturbed; observations of submap 0
+    (labels from its own field, a tenth invalid)."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.0,
+                    "bound": [[-1.5, 1.5], [-1.5, 1.5], [-1.0, 1.0]],
+                    "base_cell_size": 0.5, "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": True, "pretrained_model": None},
+           "pose": {"optimize": True, "num_poses": 1}}
+    atlas = GridAtlas(cfg, device="cpu")
+    b = np.asarray(cfg["grid"]["bound"], np.float32)
+    for s in range(2):
+        atlas.add_submap(b, np.eye(3, dtype=np.float32), np.array([1.0 * s, 0, 0], np.float32))
+        atlas.add_kf()
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for f in atlas.params.features:
+            f.copy_(0.5 * torch.randn(f.shape, generator=gen))
+        for W, bias in atlas.params.decoder:
+            W.copy_(0.5 * torch.randn(W.shape, generator=gen))
+    atlas.set_submap_pose_correction(1, [0.01, -0.02, 0.03], [0.04, -0.03, 0.02])
+    r = np.random.default_rng(seed)
+    coords = r.uniform(-1.4, 1.4, (6000, 3)).astype(np.float32)
+    with torch.no_grad():
+        gt = atlas.params.forward_submap(0, torch.as_tensor(coords)).numpy()
+    valid = (r.uniform(size=gt.shape) < 0.9).astype(np.float32)
+    return atlas, (coords, gt, valid)
+
+
+def _align_counts():
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops import tiled_interp as ti
+    return dict(interp=ti.grid_interpolate_cuda.launches,
+                interp_grad=ti.grid_interpolate_grad_cuda.launches,
+                interp_points_grad=ti.grid_interpolate_grad_cuda.points_launches,
+                slot=ti.grid_interpolate_per_point_cuda.launches,
+                slot_grad=ti.grid_interpolate_per_point_grad_cuda.launches,
+                slot_points_grad=ti.grid_interpolate_per_point_grad_cuda.points_launches,
+                decode=mlp_decode_cuda.launches, recompute=ti._GridInterp.recomputes)
+
+
+def _zero_align_counts():
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops import tiled_interp as ti
+    ti.grid_interpolate_cuda.launches = mlp_decode_cuda.launches = 0
+    ti.grid_interpolate_grad_cuda.launches = ti.grid_interpolate_grad_cuda.points_launches = 0
+    ti.grid_interpolate_per_point_cuda.launches = 0
+    ti.grid_interpolate_per_point_grad_cuda.launches = 0
+    ti.grid_interpolate_per_point_grad_cuda.points_launches = 0
+    ti._GridInterp.recomputes = 0
+
+
+def _pose_loss_and_grads(atlas, loss):
+    p = atlas.params
+    rot = p.sub_rot_corr.detach().clone().requires_grad_()
+    trans = p.sub_trans_corr.detach().clone().requires_grad_()
+    total = sum(loss(p.replace(sub_rot_corr=rot, sub_trans_corr=trans)).values())
+    return (total.detach().cpu(),) + tuple(g.cpu() for g in torch.autograd.grad(total, (rot, trans)))
+
+
+@pytest.mark.parametrize("method", ["vfpp", "mips"])
+def test_baseline_losses_match_the_cpu_and_launch(dev, method):
+    """The pair loss and pose gradient on the card against the CPU (the plain
+    versions) with the same 4096 draws; per call vfpp launches L interp
+    forwards, a decode and L points-only backwards, mips three times that."""
+    from miso_tpu_torch.align import baselines
+    cpu, obs = _baseline_atlas()
+    card = cpu.copy_to(dev)
+    fn = baselines.pairwise_loss_vfpp if method == "vfpp" else baselines.pairwise_loss_mips
+    kw = {"trunc_dist": 0.3} if method == "vfpp" else {"surf_tol": 0.3}
+    out = {}
+    for name, a in (("cpu", cpu), ("cuda", card)):
+        args = [torch.as_tensor(v, device=a.device) for v in obs]
+        if name == "cuda":
+            _zero_align_counts()
+        out[name] = _pose_loss_and_grads(a, lambda p: fn(
+            p, a, 0, 1, *args, key=torch.Generator().manual_seed(3), subsample_points=4096, **kw))
+    L = cpu.num_levels
+    k = 1 if method == "vfpp" else 3
+    assert _align_counts() == dict(interp=k * L, interp_grad=0, interp_points_grad=k * L, slot=0,
+                                   slot_grad=0, slot_points_grad=0, decode=k, recompute=0)
+    got, ref = out["cuda"], out["cpu"]
+    assert float(ref[0]) > 0
+    torch.testing.assert_close(got[0], ref[0], atol=0, rtol=1e-4)
+    scale = max(float(ref[1].abs().max()), float(ref[2].abs().max()))
+    for g, r in zip(got[1:], ref[1:]):
+        torch.testing.assert_close(g, r, atol=1e-4 * scale, rtol=0)
+
+
+def test_vmapped_infonce_matches_unrolled_and_the_cpu(dev):
+    """The vmapped InfoNCE loss on the card against the unrolled per-pair one
+    on the card and against itself on the CPU (same draws, CPU generators);
+    per call 2L slot-id forwards and L slot-id points-only backwards."""
+    from miso_tpu_torch.align import miso
+    cpu, _ = _baseline_atlas(seed=1)
+    cpu.precompute_coordinates_for_alignment()
+    card = cpu.copy_to(dev)
+    loss = miso.make_vmapped_pair_loss("latent", level=1, align_loss="InfoNCE",
+                                       subsample_points=2048)
+    out = {}
+    for name, a in (("cpu", cpu), ("cuda", card)):
+        ctx = miso.pair_context(a, 1, [(0, 1)], 2)
+        if name == "cuda":
+            _zero_align_counts()
+        out[name] = _pose_loss_and_grads(a, lambda p: loss(p, miso.PairGenerators(4, "cpu"),
+                                                           ctx))
+        if name == "cuda":
+            L = card.num_levels
+            assert _align_counts() == dict(interp=0, interp_grad=0, interp_points_grad=0,
+                                           slot=2 * L, slot_grad=0, slot_points_grad=L,
+                                           decode=0, recompute=0)
+    coords, valid = card.coordinates_for_alignment(0, 1)
+    gens = miso.PairGenerators(4, "cpu")
+    idx = torch.randperm(coords.shape[0], generator=gens.get(0, 1))[:2048].to(dev)
+    unrolled = _pose_loss_and_grads(card, lambda p: miso.pairwise_loss_latent(
+        p, card, 0, 1, 1, coords[idx], valid[idx], align_loss="InfoNCE"))
+    for got, ref in ((out["cuda"], out["cpu"]), (out["cuda"], unrolled)):
+        torch.testing.assert_close(got[0], ref[0], atol=0, rtol=1e-4)
+        scale = max(float(ref[1].abs().max()), float(ref[2].abs().max()))
+        for g, r in zip(got[1:], ref[1:]):
+            torch.testing.assert_close(g, r, atol=1e-4 * scale, rtol=0)
+
+
+def test_sphere_tracing_a_grid_net_matches_the_cpu(dev):
+    """Sphere tracing a GridNet on the card against the CPU: per step L interp
+    forwards and a decode, max_iters + 1 steps."""
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.ops import interp
+    from miso_tpu_torch.utils.sdf import sphere_tracing
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.3,
+                    "bound": [[-2.0, 2.0], [-2.0, 2.0], [-1.0, 1.0]],
+                    "base_cell_size": 0.5, "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": True, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 1}}
+    grid = create_grid_net(cfg, generator=torch.Generator().manual_seed(2), device="cpu")
+    # A sphere of radius 1.2 in channel 0 of the coarse level, which the
+    # decoder passes through (relu(x) - relu(-x)); the other channels random.
+    with torch.no_grad():
+        f = grid.features[0]
+        v = interp.vertex_positions(f.shape[:3], grid.bound)
+        f[..., 0] = (torch.linalg.vector_norm(v, dim=-1) - 1.2).reshape(f.shape[:3])
+        W0, b0, W1, b1, W2, b2 = grid.decoder
+        for t in (W0, b0, W1, b1, W2, b2):
+            t.zero_()
+        W0[0, 0], W0[0, 1], W1[0, 0], W1[1, 1], W2[0, 0], W2[1, 0] = 1, -1, 1, 1, 1, -1
+    card = copy.deepcopy(grid).to(dev)
+    r = np.random.default_rng(3)
+    a = r.uniform(0, 2 * np.pi, 5000)
+    origins = np.stack([1.9 * np.cos(a), 1.9 * np.sin(a), r.uniform(-0.5, 0.5, 5000)],
+                       1).astype(np.float32)
+    dirs = (-origins + r.normal(0, 0.3, origins.shape)).astype(np.float32)
+    ref_p, ref_h = sphere_tracing(grid, torch.as_tensor(origins), torch.as_tensor(dirs),
+                                  max_iters=40)
+    _zero_align_counts()
+    got_p, got_h = sphere_tracing(card, torch.as_tensor(origins, device=dev),
+                                  torch.as_tensor(dirs, device=dev), max_iters=40)
+    assert _align_counts() == dict(interp=2 * 41, interp_grad=0, interp_points_grad=0, slot=0,
+                                   slot_grad=0, slot_points_grad=0, decode=41, recompute=0)
+    # A ray whose value sits within float32 rounding of epsilon may stop a
+    # step apart (a step shorter than epsilon): all but a few rays agree in
+    # their hit flag.
+    agree = (got_h.cpu() == ref_h)
+    assert int(ref_h.sum()) > 0 and float(agree.float().mean()) > 0.999
+    torch.testing.assert_close(got_p.cpu(), ref_p, atol=1e-4, rtol=0)
