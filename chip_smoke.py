@@ -187,9 +187,27 @@ Phases, in order; any failure exits non-zero and prints no result:
                parts; no Fuser.  Launches exact everywhere: per residual pass
                one interp forward per level and one decode, per pretraining
                step one table-only interp backward;
-  9. report  - the card, step times, kernel times against the bound, and the
+  9. alt     - the paper's comparison models at the JAX package's default
+               widths (alt_model_cfg), each built through the config
+               registry and trained on phase 4's scene and batches
+               (tsdf_loss_3d without the eikonal, the base Trainer with Adam,
+               300 epochs): iSDF (256 wide, softplus, float32 products), the
+               Instant-NGP hash grid (8 levels x F=2, 2^19 rows), PointSDF
+               (50,000 support points, kNN of 8, 0.1 m voxel hash) and a VM
+               GridNet (phase 4's widths, rank 10); the first step against a
+               CPU copy (loss and largest gradient entry 1e-5 relative,
+               PointSDF's forward 1e-5), the step's CUDA-event times, a
+               profiled step (device time, idle share, its largest kernels),
+               the 128^3 mesh's F-score within 5 points and Chamfer_L1 within
+               25 % of the JAX package's CPU run (scripts/jax_alt_models.py,
+               JAX_ALT); then a 2D GridNet on a 512 x 512 occupancy image
+               (Sdf2D, the Sdf2D loss entry, 150 epochs), its MAE over the
+               image within 30 % of the JAX CPU run's; the decode kernel once
+               per forward of the hash grid, VM and 2D models, never for iSDF
+               and PointSDF, and no interp kernel in the whole phase, exact;
+ 10. report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches summed over phase 3's
-               default-decode run, phases 4 to 8; the fused kernel's in phase
+               default-decode run, phases 4 to 9; the fused kernel's in phase
                3's fused run); the last line is {"ok": true, "device": ...}.
 
 Phase 2 also holds the atlas queries (query_feature, query_stability,
@@ -3344,6 +3362,402 @@ def phase_encode(card, quad_ate_zero):
                 quad=quad, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the alternative models (the paper's comparison set) and the 2D grid.
+# ---------------------------------------------------------------------------
+
+# Each model at the JAX package's default widths, trained as
+# tests/test_models_extra.py trains them (tsdf_loss_3d without the eikonal,
+# the base Trainer, Adam at its learning rates), on phase 4's scene and batch.
+ALT_EPOCHS = 300
+ALT_RESOLUTION = 128
+ALT_LOSS = dict(sdf_weight=3e3, sign_weight=1e2, eik_weight=0.0, trunc_dist=0.3)
+ALT_LR = {"isdf": 1e-3, "ngp": 5e-3, "pointsdf": 2e-3, "vm": 5e-3}
+ALT_MODELS = tuple(ALT_LR)
+ALT_REGISTRY = {"isdf": "isdf", "ngp": "ngp", "pointsdf": "pointsdf", "vm": "grid_net"}
+ALT_DECODES = {"isdf": 0, "ngp": 1, "pointsdf": 0, "vm": 1}   # decode launches a forward
+ALT_TIMED_STEPS = 20
+ALT_PROFILE_STEPS = 10
+ALT_FIRST_STEP_RTOL = 1e-5
+# PointSDF's and the 2D grid's readings follow their random draws (the JAX
+# package's PointSDF read F-scores of 91.3-98.2 % over five PRNG keys,
+# scripts/jax_alt_models.py --own_draws --keys 0 1 2 3 4; the port's 2D MAE
+# 0.018-0.055 m over seeds 0-3 of its own draws), so both packages start
+# those two from the same numpy draws (alt_draws), after which they agree to
+# 0.05 F-score points and 1e-6 of the MAE over seeds 0-3
+# (scripts/alt_models_spread.py); the other three agree to 0.1 points from
+# their own draws.  Seed 0 of the shared draws trains the 2D grid worst (MAE
+# 0.154 m against 0.018-0.034 for seeds 1-3): every unit of its decoder's
+# last hidden layer with a negative output weight dies in training, so the
+# output cannot go below the output bias and the negative SDF inside the
+# obstacles is lost (alt_2d_readings' inside MAE and prediction minimum).
+# Both packages do the same, so the cell keeps seed 0.
+ALT_SHARED_DRAWS = ("pointsdf", "grid2d")
+# The 2D grid: tests/test_models_extra.py's widths on a 512 x 512 occupancy
+# image at 0.05 m a pixel (25.6 m square), Sdf2D's default batch of 2^14.
+ALT_2D = dict(size=512, cell=0.05, seed=12, epochs=150, lr=5e-3)
+# The JAX package's CPU run of the same configurations
+# (JAX_PLATFORMS=cpu python3 scripts/jax_alt_models.py): F-score (%) and
+# Chamfer_L1 (cm) of each 128^3 mesh, the 2D grid's MAE over the image and
+# mean |SDF| on its boundary pixels (m).
+JAX_ALT = {"isdf": (98.61050968700407, 1.5214368062862007),
+           "ngp": (97.692723290139, 1.3595594817321084),
+           "pointsdf": (96.6086342591395, 1.6726384837298915),
+           "vm": (98.43031631979362, 1.329155217581061)}
+JAX_ALT_2D_MAE = 0.15360190264547668
+JAX_ALT_2D_BOUNDARY = 0.08876407891511917
+ALT_FSCORE_MARGIN = 5.0
+ALT_CHAMFER_MARGIN = 0.25
+ALT_2D_MAE_MARGIN = 0.30
+
+
+def alt_model_cfg(name, bound):
+    """Model config of one alternative model over ``bound`` at the JAX
+    package's default widths (VM: phase 4's widths, rank 10)."""
+    pose = {"optimize": False, "num_poses": 1}
+    if name == "isdf":
+        return {"grid": {"bound": bound}, "isdf": {"hidden_size": 256, "hidden_layers_block": 1},
+                "pose": pose}
+    if name == "ngp":
+        return {"grid": {"bound": bound},
+                "hash": {"n_levels": 8, "feature_dim": 2, "base_resolution": 16,
+                         "per_level_scale": 1.5, "log2_hashmap_size": 19},
+                "decoder": {"hidden_dim": 64, "hidden_layers": 1, "out_dim": 1,
+                            "pos_invariant": True, "fix": False},
+                "pose": pose}
+    if name == "pointsdf":
+        return {"point": {"total_samples": 50000, "noise_threshold": 0.02,
+                          "sample_ratio_surface": 0.4, "sample_ratio_random": 0.2,
+                          "feature_dim": 8, "k_neighbors": 8, "resolution": 0.1,
+                          "hash_table_size": 2 ** 20, "num_nei_cells": 2, "search_alpha": 1.0,
+                          "bound": bound},
+                "decoder": {"sinusoidal_pe": True, "hidden_dim": 64, "num_layers": 3,
+                            "output_dim": 1},
+                "pose": {"num_frames": 1, "optimize": False}}
+    cfg = mesh_model_cfg(bound)
+    cfg["grid"] = {**cfg["grid"], "type": "VM", "VM": {"rank": 10, "fix_bases": False}}
+    return cfg
+
+
+def alt_image(size=ALT_2D["size"], seed=ALT_2D["seed"]):
+    """A (size, size) float32 occupancy image (1 free, 0 occupied) of disks
+    and boxes drawn from numpy's default_rng(seed)."""
+    rng = np.random.default_rng(seed)
+    img = np.ones((size, size), np.float32)
+    ii, jj = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    for _ in range(10):
+        ci, cj = rng.uniform(0.1 * size, 0.9 * size, 2)
+        r = rng.uniform(0.03 * size, 0.1 * size)
+        img[(ii - ci) ** 2 + (jj - cj) ** 2 < r ** 2] = 0.0
+    for _ in range(8):
+        i0, j0 = rng.integers(0, int(0.85 * size), 2)
+        h, w = rng.integers(int(0.03 * size), int(0.15 * size), 2)
+        img[i0:i0 + h, j0:j0 + w] = 0.0
+    return img
+
+
+ALT_2D_INIT_STD = 1e-4
+
+
+def alt_2d_cfg(bound):
+    return {"spatial_dim": 2,
+            "grid": {"type": "regular", "feature_dim": 4, "init_stddev": ALT_2D_INIT_STD,
+                     "bound": bound, "base_cell_size": 0.8, "per_level_scale": 4.0,
+                     "n_levels": 2},
+            "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                        "pos_invariant": True, "fix": False, "pretrained_model": None},
+            "pose": {"optimize": False, "num_poses": 1}}
+
+
+def alt_draws(feature_shapes, feature_std, dims, layernorm, seed=0):
+    """Initial trainable parameters drawn with numpy's default_rng(seed) from
+    the packages' own distributions: features N(0, feature_std^2) per shape,
+    then per decoder layer W ~ U(+-1/sqrt(fan_in)) of shape (in, out) and its
+    bias: PointSDF's LayerNorm MLP ((W0, 0), then (g = 1, b = 0, W, 0) a
+    layer) when ``layernorm``, else U(+-1/sqrt(fan_in)).  Returns (features,
+    layers) in the JAX package's layout."""
+    rng = np.random.default_rng(seed)
+    feats = [(rng.standard_normal(tuple(sh)) * feature_std).astype(np.float32)
+             for sh in feature_shapes]
+    layers = []
+    for i, (fin, fout) in enumerate(zip(dims[:-1], dims[1:])):
+        lim = 1.0 / np.sqrt(fin)
+        W = rng.uniform(-lim, lim, (fin, fout)).astype(np.float32)
+        if not layernorm:
+            layers.append((W, rng.uniform(-lim, lim, (fout,)).astype(np.float32)))
+        elif i == 0:
+            layers.append((W, np.zeros(fout, np.float32)))
+        else:
+            layers.append((np.ones(fin, np.float32), np.zeros(fin, np.float32), W,
+                           np.zeros(fout, np.float32)))
+    return feats, layers
+
+
+@torch.no_grad()
+def set_alt_draws(model, seed=0):
+    """Replace a PointSDF's or a GridNet's features and decoder by
+    :func:`alt_draws` of their shapes; returns the model."""
+    pointsdf = isinstance(model.features, torch.nn.Parameter)
+    features = [model.features] if pointsdf else list(model.features)
+    Ws = [layer[0] if len(layer) == 2 else layer[2] for layer in model.decoder_params]
+    dims = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
+    std = 0.01 if pointsdf else ALT_2D_INIT_STD
+    feats, layers = alt_draws([f.shape for f in features], std, dims, pointsdf, seed)
+    for p, a in zip(features, feats):
+        p.copy_(torch.as_tensor(a))
+    for p, a in zip(model.decoder, [a for layer in layers for a in layer]):
+        p.copy_(torch.as_tensor(a))
+    return model
+
+
+def alt_2d_readings(pred, ds):
+    """Readings of the predicted SDF at the pixel centres (m): the MAE over
+    the image (``mae``), the mean |SDF| on its boundary pixels
+    (``boundary_abs_sdf``), the MAE inside the obstacles, where the SDF is
+    negative (``inside_mae``), and the prediction's minimum (``pred_min``)."""
+    pred = np.asarray(pred, np.float64).reshape(ds.full_sdfs.shape)
+    err = np.abs(pred - ds.full_sdfs)
+    boundary = np.abs(ds.full_sdfs) <= ds.cell_size
+    return dict(mae=float(np.mean(err)), boundary_abs_sdf=float(np.mean(np.abs(pred[boundary]))),
+                inside_mae=float(np.mean(err[ds.full_sdfs < 0])), pred_min=float(pred.min()))
+
+
+def alt_first_step(model, loss_fn, batch):
+    """The first training step's loss and gradients on the card against a
+    CPU copy of the model on the same batch: the loss and the largest
+    gradient entry within ALT_FIRST_STEP_RTOL relative, every gradient entry
+    within 1e-4 of the largest; the per-point SDF within 1e-5."""
+    from miso_tpu_torch.losses.common import total_loss
+    out = {}
+    cpu = copy.deepcopy(model).cpu()
+    for key, m in (("card", model), ("cpu", cpu)):
+        b = {k: torch.as_tensor(v, device=m.bound.device) for k, v in batch.items()}
+        tl = total_loss(loss_fn(m, b, None))
+        params = [p for p in m.parameters()]
+        grads = torch.autograd.grad(tl, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        with torch.no_grad():
+            sdf = m(b["coords"])
+        out[key] = (float(tl.detach()), [g.detach().cpu() for g in grads], sdf.cpu())
+    (l_card, g_card, s_card), (l_cpu, g_cpu, s_cpu) = out["card"], out["cpu"]
+    big_card = max(float(g.abs().max()) for g in g_card)
+    big_cpu = max(float(g.abs().max()) for g in g_cpu)
+    rep = dict(loss_card=l_card, loss_cpu=l_cpu,
+               loss_rel=abs(l_card - l_cpu) / abs(l_cpu),
+               grad_max_card=big_card, grad_max_cpu=big_cpu,
+               grad_max_rel=abs(big_card - big_cpu) / big_cpu,
+               grad_err_of_max=max(float((a - b).abs().max()) for a, b in zip(g_card, g_cpu))
+               / big_cpu,
+               sdf_max_abs_err=float((s_card - s_cpu).abs().max()))
+    del cpu
+    return rep
+
+
+def alt_train(name, model, loss_fn, ds, lr, epochs, counters):
+    """The base Trainer with Adam, each step timed by CUDA events; returns
+    the trained model and the run's report (launches exact)."""
+    from miso_tpu_torch.train.trainer import Trainer
+    trainer = Trainer({"optimizer": "adam", "learning_rate": lr, "epochs": epochs},
+                      model, loss_fn, ds)
+    step_fn, events, totals = trainer.step_fn, [], []
+
+    def timed_step(*args):
+        events.append((torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True)))
+        events[-1][0].record()
+        out = step_fn(*args)
+        events[-1][1].record()
+        totals.append(out[2])
+        return out
+
+    trainer.step_fn = timed_step
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    model = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = _read_counts(counters)
+    trainer.step_fn = step_fn
+    losses = [float(v) for v in totals]
+    check(len(losses) == epochs and all(np.isfinite(losses)),
+          f"{name}: {len(losses)} finite losses of {epochs} steps")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall: {losses[0]} -> {losses[-1]}")
+    step_ms = np.array([a.elapsed_time(b) for a, b in events])
+    per = ALT_DECODES.get(name, 1)
+    check(launches == _exact(dict(interp=0, interp_grad=0, interp_points_grad=0,
+                                  decode=per * epochs, fused=0, interp_recompute_backward=0)),
+          f"{name}: training launches {launches}, expected {per} decode a step and no other")
+    return model, trainer, dict(
+        epochs=epochs, train_s=train_s, loss_first=losses[0], loss_last=losses[-1],
+        step_ms_median=float(np.median(step_ms)),
+        step_ms_median_last20=float(np.median(step_ms[-ALT_TIMED_STEPS:])),
+        step_ms_p10=float(np.percentile(step_ms, 10)), launches=launches)
+
+
+def alt_profile(name, trainer):
+    """One training step's wall and device time, idle share and its three
+    largest kernels (miso_tpu_torch/utils/profiling.py::breakdown), over
+    ALT_PROFILE_STEPS more steps of the trained model."""
+    from miso_tpu_torch.utils.profiling import breakdown
+
+    def run(steps):
+        for _ in range(steps):
+            trainer.train_epoch(0)
+
+    run(2)
+    return breakdown(f"{name} training step ({trainer.dataset.batch_size} points)", run,
+                     ALT_PROFILE_STEPS, top=8)
+
+
+def alt_mesh(name, model, scene, counters):
+    """save_mesh at ALT_RESOLUTION^3 and its metrics; one decode launch per
+    lattice chunk for the models that decode, none else."""
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics
+    from miso_tpu_torch.utils.sdf import save_mesh
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    mesh = save_mesh(model, model.bound, None, resolution=ALT_RESOLUTION)
+    mesh_s = time.perf_counter() - t0
+    launches = _read_counts(counters)
+    chunks = -(-ALT_RESOLUTION ** 3 // MESH_CHUNK)
+    check(launches == _exact(dict(interp=0, interp_grad=0, interp_points_grad=0,
+                                  decode=ALT_DECODES[name] * chunks, fused=0,
+                                  interp_recompute_backward=0)),
+          f"{name}: lattice launches {launches} in {chunks} chunks")
+    check(len(mesh.triangles) > 0, f"{name}: empty mesh")
+    t0 = time.perf_counter()
+    metrics = mesh_reconstruction_metrics(mesh, scene, n_points=MESH_METRIC_POINTS)
+    return dict(save_mesh_s=mesh_s, metrics_s=time.perf_counter() - t0, chunks=chunks,
+                launches=launches, vertices=len(mesh.vertices), metrics=metrics)
+
+
+def alt_models_3d(scene, ds, counters, card, models=ALT_MODELS, seed=0):
+    """(a): each model trained, its first step held to a CPU copy, profiled,
+    meshed and scored against the JAX package's CPU run; ``seed`` seeds the
+    models' random draws (the config's ``seed``)."""
+    from miso_tpu_torch.config import cfg_model
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    bound = ds.bound.tolist()
+    loss_fn = make_loss(tsdf_loss_3d, **ALT_LOSS)
+    first_batch = ds.sample(np.random.default_rng(0))    # the Trainer's first batch
+    reports = {}
+    for name in models:
+        cfg = {"model": {**alt_model_cfg(name, bound), "name": ALT_REGISTRY[name]}, "seed": seed}
+        t0 = time.perf_counter()
+        model = cfg_model(cfg, **({"mesh": scene} if name == "pointsdf" else {}))
+        if name in ALT_SHARED_DRAWS:
+            set_alt_draws(model, seed)
+        build_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        first = alt_first_step(model, loss_fn, first_batch)
+        model, trainer, train = alt_train(name, model, loss_fn, ds, ALT_LR[name], ALT_EPOCHS,
+                                          counters)
+        mesh = alt_mesh(name, model, scene, counters)
+        prof = alt_profile(name, trainer)
+        m = mesh["metrics"]
+        ref_f, ref_c = JAX_ALT[name]
+        log(f"  {name}: {n_params} parameters, built in {build_s:.2f} s; first step against "
+            f"the CPU copy: loss {first['loss_rel']:.2e} rel, largest gradient entry "
+            f"{first['grad_max_rel']:.2e} rel, every entry {first['grad_err_of_max']:.2e} of "
+            f"it, SDF {first['sdf_max_abs_err']:.2e}; {ALT_EPOCHS} epochs in "
+            f"{train['train_s']:.2f} s, step {train['step_ms_median']:.3f} ms median "
+            f"({train['step_ms_median_last20']:.3f} the last {ALT_TIMED_STEPS}); loss "
+            f"{train['loss_first']:.4f} -> {train['loss_last']:.4f}; mesh {ALT_RESOLUTION}^3 "
+            f"in {mesh['save_mesh_s']:.2f} s: F-score {m['F-score (%)']:.2f} % (JAX CPU "
+            f"{ref_f}), Chamfer_L1 {m['Chamfer_L1 (cm)']:.3f} cm (JAX CPU {ref_c}); profiled "
+            f"step: wall {prof['wall_ms']:.3f} ms, device {prof['device_ms']:.3f} ms, idle "
+            f"{prof['idle_share']:.3f}; top kernels " + "; ".join(
+                f"{k['name'][:60]} {k['ms']:.3f} ms ({k['share']:.2f})"
+                for k in prof["top_kernels"]) + f" ({card})")
+        check(first["loss_rel"] <= ALT_FIRST_STEP_RTOL,
+              f"{name}: first loss {first['loss_card']!r} vs the CPU copy's "
+              f"{first['loss_cpu']!r}: {first['loss_rel']:.2e} > {ALT_FIRST_STEP_RTOL}")
+        check(first["grad_max_rel"] <= ALT_FIRST_STEP_RTOL,
+              f"{name}: largest first-step gradient entry {first['grad_max_card']!r} vs "
+              f"the CPU copy's {first['grad_max_cpu']!r}")
+        check(first["grad_err_of_max"] <= GRAD_RTOL_OF_MAX,
+              f"{name}: first-step gradients {first['grad_err_of_max']:.2e} of the largest "
+              f"entry from the CPU copy's")
+        if name == "pointsdf":
+            check(first["sdf_max_abs_err"] <= 1e-5,
+                  f"pointsdf: card forward {first['sdf_max_abs_err']:.2e} from the CPU's")
+        check(abs(m["F-score (%)"] - ref_f) <= ALT_FSCORE_MARGIN,
+              f"{name}: F-score {m['F-score (%)']:.2f} not within {ALT_FSCORE_MARGIN} of the "
+              f"JAX CPU run's {ref_f:.2f}")
+        check(abs(m["Chamfer_L1 (cm)"] - ref_c) <= ALT_CHAMFER_MARGIN * ref_c,
+              f"{name}: Chamfer_L1 {m['Chamfer_L1 (cm)']:.3f} not within "
+              f"{100 * ALT_CHAMFER_MARGIN:.0f} % of the JAX CPU run's {ref_c:.3f}")
+        reports[name] = dict(parameters=n_params, build_s=build_s, first_step=first,
+                             train=train, mesh=mesh, profile=prof)
+        del model, trainer
+        torch.cuda.empty_cache()
+    return reports
+
+
+def alt_grid_2d(counters, card, seed=0):
+    """(b): a 2D GridNet on Sdf2D with the Sdf2D loss entry; the MAE over the
+    image against the JAX package's CPU run."""
+    from miso_tpu_torch.config import cfg_loss
+    from miso_tpu_torch.datasets.sdf_2d import Sdf2D
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    t0 = time.perf_counter()
+    ds = Sdf2D(alt_image(), cell_size=ALT_2D["cell"])
+    data_s = time.perf_counter() - t0
+    model = set_alt_draws(create_grid_net(alt_2d_cfg(ds.bound.tolist())), seed)
+    loss_fn = cfg_loss({"loss": {"name": "Sdf2D"}})
+    first = alt_first_step(model, loss_fn, ds.sample(np.random.default_rng(0)))
+    model, trainer, train = alt_train("grid2d", model, loss_fn, ds, ALT_2D["lr"],
+                                      ALT_2D["epochs"], counters)
+    _zero_counts(counters)
+    with torch.no_grad():
+        pred = model(torch.as_tensor(ds.full_coords.reshape(-1, 2), device="cuda")).cpu()
+    launches = _read_counts(counters)
+    check(launches == _exact(dict(interp=0, interp_grad=0, interp_points_grad=0, decode=1,
+                                  fused=0, interp_recompute_backward=0)),
+          f"grid2d: image launches {launches}, expected one decode and no other")
+    r = alt_2d_readings(pred.numpy(), ds)
+    mae = r["mae"]
+    prof = alt_profile("grid2d", trainer)
+    log(f"  grid2d: image {ds.sdf.shape} in {data_s:.2f} s, grids "
+        f"{[tuple(f.shape) for f in model.features]}; first step: loss {first['loss_rel']:.2e} "
+        f"rel, largest gradient entry {first['grad_max_rel']:.2e} rel; {ALT_2D['epochs']} epochs "
+        f"in {train['train_s']:.2f} s, step {train['step_ms_median']:.3f} ms median; MAE "
+        f"{mae:.4f} m (JAX CPU {JAX_ALT_2D_MAE}), boundary |SDF| {r['boundary_abs_sdf']:.4f} m "
+        f"(JAX CPU {JAX_ALT_2D_BOUNDARY}), inside MAE {r['inside_mae']:.4f} m, prediction "
+        f"minimum {r['pred_min']:.4f} m; profiled step: device {prof['device_ms']:.3f} ms, idle "
+        f"{prof['idle_share']:.3f} ({card})")
+    check(first["loss_rel"] <= ALT_FIRST_STEP_RTOL and first["grad_max_rel"] <= ALT_FIRST_STEP_RTOL,
+          f"grid2d: first step against the CPU copy {first}")
+    check(abs(mae - JAX_ALT_2D_MAE) <= ALT_2D_MAE_MARGIN * JAX_ALT_2D_MAE,
+          f"grid2d: MAE {mae:.4f} not within {100 * ALT_2D_MAE_MARGIN:.0f} % of the JAX CPU "
+          f"run's {JAX_ALT_2D_MAE:.4f}")
+    return dict(data_s=data_s, first_step=first, train=train, image_launches=launches,
+                profile=prof, **r)
+
+
+def phase_alt(card):
+    """The alternative models: (a) iSDF, the hash grid, PointSDF and a VM
+    GridNet trained on phase 4's scene and meshed, (b) a 2D GridNet on an
+    occupancy image.  No interp kernel runs in the phase; the decode kernel
+    once per forward of the hash grid, VM and 2D models."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.native import TriangleMesh
+    counters = kernel_counters()
+    verts, tris = room_scene(4.0)
+    scene = TriangleMesh(verts, tris)
+    ds = Sdf3D(scene, batch_size=MESH_BATCH, total_samples=MESH_SAMPLES, trunc_dist=0.3)
+    models = alt_models_3d(scene, ds, counters, card)
+    grid2d = alt_grid_2d(counters, card)
+    launches = [r["train"]["launches"] for r in models.values()] + \
+        [r["mesh"]["launches"] for r in models.values()] + \
+        [grid2d["train"]["launches"], grid2d["image_launches"]]
+    return dict(models=models, grid2d=grid2d, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
@@ -3422,14 +3836,20 @@ def main() -> int:
     encode_report = phase_encode(card, quad_report["ate_prefusion"])
     encode_report["seconds"] = time.perf_counter() - t0
 
-    log("phase 9: report")
+    log("phase 9: the alternative models (iSDF, hash grid, PointSDF, VM grid; a 2D grid)")
+    t0 = time.perf_counter()
+    alt_report = phase_alt(card)
+    alt_report["seconds"] = time.perf_counter() - t0
+
+    log("phase 10: report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
                       "fused_kernel": times, "interp_kernels": interp_times,
                       "decode_kernel": decode_t, "atlas_query": atlas_times,
                       "slot_kernels": slot_times, "main_path": main_report,
                       "main_path_fused": fused_report, "mesh_path": mesh_report,
                       "slam_path": slam_report, "quad_path": quad_report,
-                      "align_path": align_report, "encode_path": encode_report}), flush=True)
+                      "align_path": align_report, "encode_path": encode_report,
+                      "alt_models": alt_report}), flush=True)
 
     online, quad = slam_report["online"], quad_report
     path_launches = [main_report["launches"], mesh_report["train_launches"],
@@ -3440,15 +3860,15 @@ def main() -> int:
                      quad["consolidation"]["launches"], quad["mesh"]["launches"],
                      align_report["launches"],
                      *(r["launches"] for r in align_report["baselines"].values()),
-                     *encode_report["launches"]]
+                     *encode_report["launches"], *alt_report["launches"]]
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
         default-decode run, phase 4's training and lattice, phase 5's online
         run, refinement, observed mesh and LM run, phase 6's online run,
         alignment, fuse, consolidation and fused mesh, phase 7's alignment,
-        and phase 8's encoder pretraining, one-shot prediction, optimize runs,
-        in-system runs and quad run."""
+        phase 8's encoder pretraining, one-shot prediction, optimize runs,
+        in-system runs and quad run, and phase 9's training and lattices."""
         return sum(c[name] for c in path_launches)
 
     def entry(name, source, replaces, launches, err, t):

@@ -5,9 +5,6 @@ default file; registries map the names in ``configs/*.yaml`` to model, loss
 and dataset constructors, and ``cfg_*`` build them.  Models are built on
 ``device`` ("cuda" unless the caller asks for the CPU), their random draws
 from ``generator`` (seeded from the config's ``seed`` when None).
-
-An entry whose class is not ported yet raises ``NotImplementedError`` naming
-the ROADMAP item (Queue 1) that ports it.
 """
 from __future__ import annotations
 
@@ -142,12 +139,6 @@ def cfg_trainer(cfg: Dict, model, loss_fn, dataset, val_dataset=None, **kwargs):
     return cls(cfg_train, model, loss_fn, dataset, val_dataset, **kwargs)
 
 
-def _not_ported(what: str, item: str):
-    def build(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1, {item})")
-    return build
-
-
 _BUILTINS_DONE = False
 
 
@@ -161,7 +152,7 @@ def _register_builtins():
     from miso_tpu_torch.losses.isdf_loss import isdf_loss, isdf_loss_submap
     from miso_tpu_torch.losses.miso import (make_loss, mapping_loss, posed_sdf_loss_3d,
                                             tracking_loss)
-    from miso_tpu_torch.losses.sdf import sdf_loss_3d, tsdf_loss_3d
+    from miso_tpu_torch.losses.sdf import sdf_loss_2d, sdf_loss_3d, tsdf_loss_3d
     from miso_tpu_torch.models.grid_net import create_grid_net
 
     # -- models ------------------------------------------------------------
@@ -176,8 +167,20 @@ def _register_builtins():
         return GridAtlas(cfg["model"], max_kfs_per_submap=sys_cfg.get("submap_size", 1),
                          capacity=sys_cfg.get("submap_capacity"), device=device)
 
-    for name, what in (("isdf", "iSDF"), ("pointsdf", "PointSDF"), ("ngp", "HashGrid")):
-        MODEL_REGISTRY[name] = _not_ported(what, "item 6 (alternative models and grids)")
+    @register_model("isdf")
+    def _isdf(cfg, generator, device, **kw):
+        from miso_tpu_torch.models.isdf import create_isdf
+        return create_isdf(cfg["model"], generator=generator, device=device, **kw)
+
+    @register_model("pointsdf")
+    def _pointsdf(cfg, generator, device, **kw):
+        from miso_tpu_torch.models.pointsdf import create_pointsdf
+        return create_pointsdf(cfg["model"], generator=generator, device=device, **kw)
+
+    @register_model("ngp")
+    def _ngp(cfg, generator, device, **kw):
+        from miso_tpu_torch.models.hashgrid import create_hash_grid_net
+        return create_hash_grid_net(cfg["model"], generator=generator, device=device, **kw)
 
     # -- losses ------------------------------------------------------------
     def _kw(cfg, keys):
@@ -213,7 +216,10 @@ def _register_builtins():
                          grad_method=c.get("grad_method", "finitediff"),
                          eik_trunc_dist=c.get("eik_trunc_dist", 0.1))
 
-    LOSS_REGISTRY["Sdf2D"] = _not_ported("The Sdf2D loss", "item 6 (2D grids)")
+    @register_loss("Sdf2D")
+    def _sdf2d(cfg):
+        return make_loss(sdf_loss_2d, **_kw(cfg, ["sdf_weight"]))
+
     @register_loss("PosedSdf3DSubmap")
     def _posed_submap(cfg):
         c = cfg["loss"]
@@ -307,4 +313,7 @@ def _register_builtins():
         from miso_tpu_torch.datasets.fastcamo import FastCaMo
         return FastCaMo(cfg)
 
-    DATASET_REGISTRY["Sdf2D"] = _not_ported("Sdf2D", "item 6 (2D grids)")
+    @register_dataset("Sdf2D")
+    def _d_sdf2d(cfg):
+        from miso_tpu_torch.datasets.sdf_2d import Sdf2D
+        return Sdf2D(cfg["dataset"]["path"], batch_size=cfg["train"].get("batch_size", 2**14))

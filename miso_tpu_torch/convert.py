@@ -3,12 +3,14 @@
 For :func:`grid_net_from_numpy`, ``arrays`` holds the leaves of a
 ``miso_tpu`` GridNet as numpy arrays:
 
-  features      per-level (X, Y, Z, F) grids
+  features      per-level (X, Y, Z, F) grids ((X, Y, F) in 2D), or per-level
+                VM factor dicts ('xy', ..., 'z')
+  vm_bases      per-level VM basis dicts ('xy_z', 'xz_y', 'yz_x'), VM only
   stability     per-level (X, Y, Z, 1) grids
   decoder       ((W (in, out), b (out,)), ...) or None
   rot_corr, trans_corr, twk   (K, 3)
   Rwk           (K, 3, 3)
-  bound         (3, 2)
+  bound         (d, 2)
   ignore_level  (L,)
   anchor_kf     () integer
 
@@ -21,6 +23,11 @@ its folded ``(S, g0, g1*g2*C)`` storage, with its static ``pad_spatial``.
 carry one encoder level's parameters (``{'conv': ((W, b), ...), 'mlp':
 ((W, b), ...)}``) both ways, the conv weights between the JAX package's
 (D, H, W, I, O) and torch's (O, I, D, H, W).
+:func:`hash_grid_net_from_numpy`, :func:`isdf_from_numpy` and
+:func:`pointsdf_from_numpy` take the leaves of a JAX ``HashGridNet``,
+``ISDF`` or ``PointSDF`` under their field names (the layer lists as
+((W, b), ...), PointSDF's decoder as ((W0, b0), (g, b, W, bb), ...)), with
+the static settings from ``cfg_model``.
 """
 from __future__ import annotations
 
@@ -32,20 +39,31 @@ import torch
 from miso_tpu_torch.models.encoder import FeaturePrediction
 from miso_tpu_torch.models.grid_atlas import GridAtlasParams
 from miso_tpu_torch.models.grid_net import GridNet, _check_device, _settings
+from miso_tpu_torch.models.hashgrid import HashGridNet, hash_settings
+from miso_tpu_torch.models.isdf import ISDF, isdf_settings
+from miso_tpu_torch.models.pointsdf import PointSDF, pointsdf_settings
+
+
+def _tensor_fn(device):
+    """numpy (or JAX) array -> a tensor on ``device`` (a copy)."""
+    def t(a):
+        return torch.as_tensor(np.array(a), device=device)
+    return t
 
 
 def grid_net_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> GridNet:
-    device = _check_device(device)
+    t = _tensor_fn(_check_device(device))
 
-    def t(a):
-        return torch.as_tensor(np.array(a), device=device)
+    def level(f):
+        return {k: t(v) for k, v in f.items()} if isinstance(f, dict) else t(f)
 
     decoder = arrays.get("decoder")
     if decoder is not None:
         decoder = [(t(W), None if b is None else t(b)) for W, b in decoder]
+    vm_bases = arrays.get("vm_bases")
     pcfg = cfg_model.get("pose", {})
     return GridNet(
-        [t(f) for f in arrays["features"]],
+        [level(f) for f in arrays["features"]],
         [t(s) for s in arrays["stability"]],
         decoder,
         rot_corr=t(arrays["rot_corr"]), trans_corr=t(arrays["trans_corr"]),
@@ -53,6 +71,7 @@ def grid_net_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> GridNet
         ignore_level=t(arrays["ignore_level"]),
         anchor_kf=int(np.asarray(arrays.get("anchor_kf", 0))),
         optimize_pose=bool(pcfg.get("optimize", False)),
+        vm_bases=None if vm_bases is None else [level(b) for b in vm_bases],
         **_settings(cfg_model))
 
 
@@ -60,10 +79,7 @@ def grid_atlas_params_from_numpy(arrays: Dict, cfg_model: Dict, num_submaps: int
                                  device="cuda") -> GridAtlasParams:
     """The port's atlas params from a JAX atlas's arrays; ``num_submaps`` is
     the live slot count (the JAX wrapper's ``num_submaps``)."""
-    device = _check_device(device)
-
-    def t(a):
-        return torch.as_tensor(np.array(a), device=device)
+    t = _tensor_fn(_check_device(device))
 
     def unfold(levels, channels):
         return [t(a).reshape(a.shape[0], *pad, channels)
@@ -114,3 +130,28 @@ def feature_prediction_to_numpy(module: FeaturePrediction) -> Dict:
     return {"conv": tuple((np.transpose(a(W), (2, 3, 4, 1, 0)), a(b))
                           for W, b in zip(module.conv.weight, module.conv.bias)),
             "mlp": tuple((a(W), a(b)) for W, b in module.mlp_params)}
+
+
+def _poses(arrays, t):
+    return {k: t(arrays[k]) for k in ("rot_corr", "trans_corr", "Rwk", "twk", "bound")}
+
+
+def hash_grid_net_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> HashGridNet:
+    t = _tensor_fn(_check_device(device))
+    return HashGridNet([t(a) for a in arrays["tables"]],
+                       [(t(W), t(b)) for W, b in arrays["decoder"]],
+                       **_poses(arrays, t), **hash_settings(cfg_model))
+
+
+def isdf_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> ISDF:
+    t = _tensor_fn(_check_device(device))
+    return ISDF([(t(W), t(b)) for W, b in arrays["layers"]], **_poses(arrays, t),
+                **isdf_settings(cfg_model))
+
+
+def pointsdf_from_numpy(arrays: Dict, cfg_model: Dict, device="cuda") -> PointSDF:
+    t = _tensor_fn(_check_device(device))
+    return PointSDF(t(arrays["points"]), t(arrays["features"]),
+                    [tuple(t(a) for a in layer) for layer in arrays["decoder"]],
+                    t(arrays["hash_point_idx"]), t(arrays["neighbor_dx"]),
+                    **_poses(arrays, t), **pointsdf_settings(cfg_model))

@@ -1,5 +1,4 @@
-"""Plain SDF supervision losses (port of ``miso_tpu/losses/sdf.py``: the 3D
-ones).
+"""Plain SDF supervision losses (port of ``miso_tpu/losses/sdf.py``).
 
 ``key`` is a ``torch.Generator`` on the model's device (or None for the
 default generator): the eikonal's uniform points are drawn from it.
@@ -9,6 +8,12 @@ from __future__ import annotations
 import torch
 
 from miso_tpu_torch.losses.common import eikonal_loss_uniform
+
+
+def sdf_loss_2d(model, batch, key=None, sdf_weight=3e3):
+    """Plain MSE."""
+    pred = model(batch["coords"])
+    return {"sdf": torch.mean((pred - batch["sdf"]) ** 2) * sdf_weight}
 
 
 def sdf_loss_3d(model, batch, key=None, sdf_weight=3e3):

@@ -1,1 +1,3 @@
-"""Models: GridNet and the parameter-mask helpers."""
+"""Models: GridNet (regular, 2D and VM grids), GridAtlas, the encoder, the
+alternative models (``hashgrid.HashGridNet``, ``isdf.ISDF``,
+``pointsdf.PointSDF``) and the parameter-mask helpers."""

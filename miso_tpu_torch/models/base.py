@@ -8,10 +8,12 @@ parameters), or a dict of tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
+
+from miso_tpu_torch.ops import se3
 
 Tree = Union[nn.Module, Dict[str, torch.Tensor]]
 
@@ -32,6 +34,11 @@ def tree_full_mask(model: Tree, value: float = 1.0) -> Dict[str, torch.Tensor]:
 
 def tree_zero_mask(model: Tree) -> Dict[str, torch.Tensor]:
     return tree_full_mask(model, 0.0)
+
+
+def tree_scale_mask(mask, scale: float):
+    """Every entry of a mask times ``scale``."""
+    return {k: m * scale for k, m in mask.items()}
 
 
 def tree_combine_masks(*masks):
@@ -60,7 +67,61 @@ def count_params(tree: Tree) -> int:
     return sum(int(v.numel()) for v in named_tensors(tree).values())
 
 
+def tree_norm(tree: Tree) -> torch.Tensor:
+    """sqrt of the sum of squares of every entry (a module's parameters, its
+    buffers not included), in float32."""
+    return torch.sqrt(sum(torch.sum(v.to(torch.float32) ** 2)
+                          for v in named_tensors(tree).values()))
+
+
+def check_tensor(x, name: str = "tensor"):
+    """Raise ``ValueError`` when ``x`` holds a NaN or an infinity; else
+    return it."""
+    if not bool(torch.all(torch.isfinite(torch.as_tensor(x)))):
+        raise ValueError(f"{name} contains NaN/Inf")
+    return x
+
+
 def sanitize_batch(batch):
     """NaN-scrub the floating-point entries of a batch dict."""
     return {k: torch.nan_to_num(v) if torch.is_tensor(v) and v.is_floating_point()
             else v for k, v in batch.items()}
+
+
+class KeyframePoses:
+    """The keyframe pose API of the models: (K, 3) so(3) and translation
+    corrections (parameters ``rot_corr``, ``trans_corr``) applied as
+    ``R @ Exp(dr), t + dt`` on top of the buffered initial poses ``Rwk``
+    (K, 3, 3) and ``twk`` (K, 3)."""
+
+    @property
+    def num_poses(self) -> int:
+        return self.rot_corr.shape[0]
+
+    def updated_kf_poses(self, lock_mask: Optional[torch.Tensor] = None):
+        """All K corrected poses, batched.
+
+        lock_mask: optional (K,) float; rows with 1 get no gradient.
+        """
+        dr, dt = self.rot_corr, self.trans_corr
+        if lock_mask is not None:
+            m = lock_mask[:, None]
+            dr = dr.detach() * m + dr * (1.0 - m)
+            dt = dt.detach() * m + dt * (1.0 - m)
+        return se3.apply_pose_correction(self.Rwk, self.twk, dr, dt)
+
+    @torch.no_grad()
+    def updated_kf_pose(self, kf_id: int):
+        """The corrected pose (R (3, 3), t (3,)) of local keyframe ``kf_id``."""
+        R, t = self.updated_kf_poses()
+        return R[kf_id], t[kf_id]
+
+    @torch.no_grad()
+    def set_initial_kf_pose(self, kf_id: int, R, t):
+        """Set an initial pose and zero its corrections, in place; returns
+        self."""
+        self.Rwk[kf_id] = torch.as_tensor(R, dtype=self.Rwk.dtype)
+        self.twk[kf_id] = torch.as_tensor(t, dtype=self.twk.dtype).reshape(3)
+        self.rot_corr[kf_id] = 0.0
+        self.trans_corr[kf_id] = 0.0
+        return self

@@ -29,7 +29,6 @@ Random numbers (initial weights, the ``pred_std`` noise) come from explicit
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -42,7 +41,7 @@ from torch import nn
 
 from miso_tpu_torch.ops import interp, se3
 from miso_tpu_torch.ops.fused_decode import mlp_decode
-from miso_tpu_torch.ops.mlp import mlp_apply, mlp_init
+from miso_tpu_torch.ops.mlp import fp32_math, mlp_apply, mlp_init
 from miso_tpu_torch.ops.pooling import grid_pool_avg
 from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
 
@@ -54,20 +53,6 @@ class EncoderObservation:
     gt_sdf: torch.Tensor         # (N, 1)
     gt_sdf_sign: torch.Tensor    # (N, 1)
     gt_sdf_valid: torch.Tensor   # (N, 1)
-
-
-@contextlib.contextmanager
-def fp32_math():
-    """cuDNN convolutions and CUDA matmuls in full float32 (no TF32) inside
-    the block; the process's flags are restored after it."""
-    conv, matmul = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cudnn.allow_tf32 = conv
-        torch.backends.cuda.matmul.allow_tf32 = matmul
 
 
 class _Float32(torch.autograd.Function):

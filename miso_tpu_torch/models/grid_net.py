@@ -14,15 +14,24 @@ Buffers: ``Rwk``, ``twk``, ``bound``, ``ignore_level``, ``anchor_kf``.
 
 ``decode_impl`` keeps the config value ``decoder.impl``: ``"xla"`` (the
 default) interpolates each level and then decodes, ``"pallas"`` runs the
-fused kernel (``ops/fused_decode.py``).  On the card the ``"xla"`` path, and
-``query_feature`` and ``query_stability``, go through the interp kernels
-(``ops/tiled_interp.py``) and the decode kernel (``ops/fused_decode.py::
-mlp_decode``); on the CPU through their plain versions.  ``frozen=True``
+fused kernel (``ops/fused_decode.py``; regular grids only).  On the card the
+``"xla"`` path, and ``query_feature`` and ``query_stability``, go through the
+interp kernels (``ops/tiled_interp.py``) and the decode kernel
+(``ops/fused_decode.py::mlp_decode``); on the CPU through their plain
+versions.  The interp kernels are 3D: a 2D grid (``spatial_dim: 2``)
+interpolates with the rank-generic ``ops/interp.py::grid_interpolate`` on
+every device, and so do the planes and lines of a VM grid.
+
+``grid.type: "VM"`` is the TensoRF plane and line factorization: per level
+six factors, ``features.<l>.xy``, ``.xz``, ``.yz`` (g_i, g_j, R) and
+``.x``, ``.y``, ``.z`` (g_k, R), and three learned bases
+``vm_bases.<l>.xy_z``, ``.xz_y``, ``.yz_x`` (F, R) that turn the products
+of the factors into F features (``ops/interp.py::vm_interpolate``,
+``vm_basis_apply``); its stability grids stay dense.  ``frozen=True``
 queries with every table and the decoder detached, so that a backward asks
 for no parameter's gradient (LM tracking wants the points' alone).  A
 decoder's ``pretrained_model`` (an ``.npz`` of either package's
-``save_pytree``) is loaded by :func:`create_grid_net`.  VM grids wait for a
-later slice.
+``save_pytree``) is loaded by :func:`create_grid_net`.
 """
 from __future__ import annotations
 
@@ -31,26 +40,43 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from miso_tpu_torch.models.base import KeyframePoses
 from miso_tpu_torch.ops import interp, se3
 from miso_tpu_torch.ops.fused_decode import fused_interp_decode, mlp_decode
 from miso_tpu_torch.ops.mlp import mlp_init
 from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
 
 DECODE_IMPLS = ("xla", "pallas")
+GRID_TYPES = ("regular", "VM")
+VM_PLANES = ("xy", "xz", "yz")
+VM_LINES = ("x", "y", "z")
+VM_PRODUCTS = ("xy_z", "xz_y", "yz_x")
 
 
-class GridNet(nn.Module):
+class GridNet(KeyframePoses, nn.Module):
 
     def __init__(self, features, stability, decoder, rot_corr, trans_corr,
                  Rwk, twk, bound, ignore_level, anchor_kf=0, *,
                  cell_sizes: Sequence[float] = (), pos_invariant: bool = True,
                  decoder_fixed: bool = False, optimize_pose: bool = False,
-                 decode_impl: str = "xla"):
+                 decode_impl: str = "xla", grid_type: str = "regular",
+                 vm_bases=None, vm_bases_fixed: bool = False):
         super().__init__()
         if decode_impl not in DECODE_IMPLS:
             raise ValueError(f"decode_impl must be one of {DECODE_IMPLS}, "
                              f"got {decode_impl!r}")
-        self.features = nn.ParameterList([nn.Parameter(f) for f in features])
+        if grid_type not in GRID_TYPES:
+            raise ValueError(f"grid_type must be one of {GRID_TYPES}, got {grid_type!r}")
+        if grid_type == "VM":
+            self.features = nn.ModuleList([nn.ParameterDict(
+                {k: nn.Parameter(fac[k]) for k in VM_PLANES + VM_LINES}) for fac in features])
+            self.vm_bases = nn.ModuleList([nn.ParameterDict(
+                {k: nn.Parameter(b[k]) for k in VM_PRODUCTS}) for b in vm_bases])
+            self.fdim = int(vm_bases[0]["xy_z"].shape[0])
+        else:
+            self.features = nn.ParameterList([nn.Parameter(f) for f in features])
+            self.vm_bases = None
+            self.fdim = int(features[0].shape[-1])
         self.stability = nn.ParameterList([nn.Parameter(s) for s in stability])
         if decoder is None:
             self.decoder = None
@@ -68,19 +94,16 @@ class GridNet(nn.Module):
         self.register_buffer("anchor_kf", torch.as_tensor(
             anchor_kf, dtype=torch.int32, device=bound.device))
         self.d = int(bound.shape[0])
-        self.fdim = int(features[0].shape[-1])
         self.num_levels = len(features)
         self.cell_sizes = tuple(cell_sizes)
         self.pos_invariant = pos_invariant
         self.decoder_fixed = decoder_fixed
         self.optimize_pose = optimize_pose
         self.decode_impl = decode_impl
+        self.grid_type = grid_type
+        self.vm_bases_fixed = vm_bases_fixed
 
     # --- derived ----------------------------------------------------------
-    @property
-    def num_poses(self) -> int:
-        return self.rot_corr.shape[0]
-
     def level_shape(self, level: int):
         return tuple(self.features[level].shape[:-1])
 
@@ -98,55 +121,62 @@ class GridNet(nn.Module):
     def tree_fields(self):
         """(key, value) of the JAX GridNet's leaves, in its key-path spelling
         (``train/checkpoint.py`` writes and reads them)."""
-        return [(".features", list(self.features)), (".stability", list(self.stability)),
+        if self.grid_type == "VM":
+            features = [dict(fac.items()) for fac in self.features]
+            vm_bases = [dict(b.items()) for b in self.vm_bases]
+        else:
+            features, vm_bases = list(self.features), None
+        return [(".features", features), (".stability", list(self.stability)),
                 (".decoder", None if self.decoder is None else
                  [[self.decoder[i], self.decoder[i + 1]]
                   for i in range(0, len(self.decoder), 2)]),
                 (".rot_corr", self.rot_corr), (".trans_corr", self.trans_corr),
                 (".Rwk", self.Rwk), (".twk", self.twk), (".bound", self.bound),
-                (".ignore_level", self.ignore_level), (".anchor_kf", self.anchor_kf)]
+                (".ignore_level", self.ignore_level), (".vm_bases", vm_bases),
+                (".anchor_kf", self.anchor_kf)]
 
     # --- queries ----------------------------------------------------------
+    @property
+    def _interpolate(self):
+        """One level's interp: the kernels' dispatch for 3D grids, the
+        rank-generic plain op for 2D ones."""
+        return grid_interpolate_dispatch if self.d == 3 else interp.grid_interpolate
+
     def query_feature(self, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
-        """Multi-level interp and concat (regular grids)."""
+        """Multi-level interp and concat; a VM level's features are its
+        factors' products through its bases."""
+        if self.grid_type == "VM":
+            return self._vm_features(x, frozen)
         feats = [f.detach() if frozen else f for f in self.features]
         return interp.multi_level_interpolate(feats, x, self.bound, self.ignore_level,
-                                              interpolate=grid_interpolate_dispatch)
+                                              interpolate=self._interpolate)
+
+    def _vm_features(self, x: torch.Tensor, frozen: bool) -> torch.Tensor:
+        feats = []
+        for level in range(self.num_levels):
+            fac = {k: v.detach() if frozen else v for k, v in self.features[level].items()}
+            basis = {k: v.detach() if frozen or self.vm_bases_fixed else v
+                     for k, v in self.vm_bases[level].items()}
+            f = interp.vm_basis_apply(basis, interp.vm_interpolate(fac, fac, x, self.bound))
+            feats.append(f * (1.0 - self.ignore_level[level].to(f.dtype)))
+        return torch.cat(feats, dim=-1)
 
     def query_stability(self, x: torch.Tensor) -> torch.Tensor:
         """Stability grids are never level-ignored."""
         return interp.multi_level_interpolate(list(self.stability), x, self.bound,
-                                              interpolate=grid_interpolate_dispatch)
+                                              interpolate=self._interpolate)
 
     def forward(self, x: torch.Tensor, frozen: bool = False) -> torch.Tensor:
         decoder = self._decoder(frozen)
-        if (self.decode_impl == "pallas" and decoder is not None
-                and self.pos_invariant):
+        if (self.decode_impl == "pallas" and self.grid_type == "regular"
+                and decoder is not None and self.pos_invariant):
             feats = [f.detach() if frozen else f for f in self.features]
             return fused_interp_decode(feats, x, self.bound, decoder,
                                        ignore_level=self.ignore_level)
         return interp.grid_decode(self.query_feature(x, frozen), x, decoder,
                                   self.pos_invariant, decode=mlp_decode)
 
-    # --- poses ------------------------------------------------------------
-    def updated_kf_poses(self, lock_mask: Optional[torch.Tensor] = None):
-        """All K corrected poses, batched.
-
-        lock_mask: optional (K,) float; rows with 1 get no gradient.
-        """
-        dr, dt = self.rot_corr, self.trans_corr
-        if lock_mask is not None:
-            m = lock_mask[:, None]
-            dr = dr.detach() * m + dr * (1.0 - m)
-            dt = dt.detach() * m + dt * (1.0 - m)
-        return se3.apply_pose_correction(self.Rwk, self.twk, dr, dt)
-
-    @torch.no_grad()
-    def updated_kf_pose(self, kf_id: int):
-        """The corrected pose (R (3, 3), t (3,)) of local keyframe ``kf_id``."""
-        R, t = self.updated_kf_poses()
-        return R[kf_id], t[kf_id]
-
+    # --- poses (updated_kf_poses and the rest: KeyframePoses) --------------
     def initial_kf_pose(self, kf_id: int):
         return self.Rwk[kf_id], self.twk[kf_id]
 
@@ -157,15 +187,6 @@ class GridNet(nn.Module):
         return int(kf_key[2:]) - int(self.anchor_kf)
 
     # --- in-place updates -------------------------------------------------
-    @torch.no_grad()
-    def set_initial_kf_pose(self, kf_id: int, R, t) -> "GridNet":
-        """Set an initial pose and zero its corrections, in place."""
-        self.Rwk[kf_id] = torch.as_tensor(R, dtype=self.Rwk.dtype)
-        self.twk[kf_id] = torch.as_tensor(t, dtype=self.twk.dtype).reshape(3)
-        self.rot_corr[kf_id] = 0.0
-        self.trans_corr[kf_id] = 0.0
-        return self
-
     @torch.no_grad()
     def zero_features(self) -> "GridNet":
         """Zero every feature table, in place; returns self."""
@@ -195,11 +216,6 @@ class GridNet(nn.Module):
 def _settings(cfg_model: Dict):
     """The static settings create_grid_net and convert read from a config."""
     g = cfg_model["grid"]
-    if g.get("type", "regular") != "regular":
-        raise NotImplementedError(f"grid type {g.get('type')!r}: only regular "
-                                  "grids are ported so far")
-    if int(cfg_model.get("spatial_dim", 3)) != 3:
-        raise NotImplementedError("only 3D grids are ported so far")
     dcfg = cfg_model.get("decoder", {"type": "none"})
     n_levels = int(g["n_levels"])
     base_cell = float(g["base_cell_size"])
@@ -209,6 +225,8 @@ def _settings(cfg_model: Dict):
         pos_invariant=bool(dcfg.get("pos_invariant", True)),
         decoder_fixed=bool(dcfg.get("fix", False)),
         decode_impl=str(dcfg.get("impl", "xla")),
+        grid_type=g.get("type", "regular"),
+        vm_bases_fixed=bool(g.get("VM", {}).get("fix_bases", False)),
     )
 
 
@@ -229,8 +247,9 @@ def decoder_from_config(cfg_model: Dict, generator: Optional[torch.Generator] = 
     if dcfg.get("type", "none") != "mlp":
         return None
     g = cfg_model["grid"]
+    d = int(cfg_model.get("spatial_dim", 3))
     in_dim = int(g["n_levels"]) * int(g["feature_dim"]) \
-        + (0 if bool(dcfg.get("pos_invariant", True)) else 3)
+        + (0 if bool(dcfg.get("pos_invariant", True)) else d)
     decoder = mlp_init(in_dim, int(dcfg["out_dim"]), int(dcfg["hidden_dim"]),
                        int(dcfg["hidden_layers"]), bias=True,
                        generator=generator, dtype=dtype, device=device)
@@ -249,7 +268,9 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
     """Build a GridNet from a model config dict (``configs/*.yaml``'s ``model``).
 
     Random draws come from ``generator`` (a CPU generator; the default
-    generator when None) and are moved to ``device``.
+    generator when None) and are moved to ``device``.  A VM level draws its
+    factors (xy, xz, yz, x, y, z), then its bases (xy_z, xz_y, yz_x), from
+    N(0, max(init_stddev, 1e-2)^2).
     """
     device = _check_device(device)
     g = cfg_model["grid"]
@@ -261,10 +282,24 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
     fdim = int(g["feature_dim"])
     init_std = float(g.get("init_stddev", 0.0))
     initial_features = initial_features or {}
+    d = int(cfg_model.get("spatial_dim", 3))
+    rank = int(g.get("VM", {}).get("rank", 10))
 
-    features, stability = [], []
+    def vm_draw(*shape):
+        return (torch.randn(shape, generator=generator, dtype=torch.float32)
+                * max(init_std, 1e-2)).to(feat_dtype).to(device)
+
+    features, stability, vm_bases = [], [], []
     for level, cell in enumerate(settings["cell_sizes"]):
-        shape = interp.grid_shape_for_bound(bound_t, cell, 3)
+        shape = interp.grid_shape_for_bound(bound_t, cell, d)
+        if settings["grid_type"] == "VM":
+            gx, gy, gz = shape
+            features.append({"xy": vm_draw(gx, gy, rank), "xz": vm_draw(gx, gz, rank),
+                             "yz": vm_draw(gy, gz, rank), "x": vm_draw(gx, rank),
+                             "y": vm_draw(gy, rank), "z": vm_draw(gz, rank)})
+            vm_bases.append({k: vm_draw(fdim, rank) for k in VM_PRODUCTS})
+            stability.append(torch.zeros((*shape, 1), dtype=feat_dtype, device=device))
+            continue
         if level in initial_features:
             f = torch.as_tensor(initial_features[level], dtype=feat_dtype)
             if tuple(f.shape) != (*shape, fdim):
@@ -290,7 +325,8 @@ def create_grid_net(cfg_model: Dict, bound=None, num_poses: Optional[int] = None
         twk=torch.zeros((K, 3), dtype=dtype, device=device),
         bound=bound_t.to(device),
         ignore_level=torch.zeros((len(features),), dtype=dtype, device=device),
-        anchor_kf=anchor_kf, optimize_pose=opt_pose, **settings)
+        anchor_kf=anchor_kf, optimize_pose=opt_pose, vm_bases=vm_bases or None,
+        **settings)
 
 
 # ---------------------------------------------------------------------------
@@ -307,7 +343,8 @@ def grid_net_mask(model: GridNet, features=True, stability=None,
       * ``level=l`` -> only level-l feature and stability grids train
         (``level >= num_levels`` means all levels, the joint phase);
       * ``features``/``stability``: a bool, or one bool per level;
-      * the decoder trains unless ``decoder_fixed``;
+      * the decoder trains unless ``decoder_fixed``, and a VM grid's bases
+        with it unless ``vm_bases_fixed``;
       * poses train when ``optimize_pose`` (or an explicit ``pose``);
       * ``pose_rows`` is a (K,) float row mask for per-index locking.
     """
@@ -335,6 +372,13 @@ def grid_net_mask(model: GridNet, features=True, stability=None,
 
     mask = {}
     for l, s in enumerate(level_sel(features)):
+        if model.grid_type == "VM":
+            for k in model.features[l]:
+                mask[f"features.{l}.{k}"] = scalar(s * feature_lr)
+            for k in model.vm_bases[l]:
+                mask[f"vm_bases.{l}.{k}"] = scalar(
+                    0.0 if model.vm_bases_fixed else float(bool(decoder)))
+            continue
         mask[f"features.{l}"] = scalar(s * feature_lr)
     for l, s in enumerate(level_sel(stability)):
         mask[f"stability.{l}"] = scalar(s * feature_lr)

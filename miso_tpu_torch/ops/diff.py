@@ -37,3 +37,9 @@ def gradient3d(x, f, method="autograd", finite_diff_eps=1e-2):
     if x.shape[-1] != 3:
         raise ValueError(f"expected (N, 3) points, got {tuple(x.shape)}")
     return gradient(x, f, method, finite_diff_eps)
+
+
+def gradient2d(x, f, method="autograd", finite_diff_eps=1e-2):
+    if x.shape[-1] != 2:
+        raise ValueError(f"expected (N, 2) points, got {tuple(x.shape)}")
+    return gradient(x, f, method, finite_diff_eps)

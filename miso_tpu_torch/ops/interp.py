@@ -24,7 +24,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from miso_tpu_torch.ops.mlp import mlp_apply
+from miso_tpu_torch.ops.mlp import fp32_matmul, mlp_apply
 
 
 def index_coords(x: torch.Tensor, bound: torch.Tensor, size) -> torch.Tensor:
@@ -258,3 +258,35 @@ def grid_shape_for_bound(bound, cell_size, d=3):
     b = np.asarray(bound, dtype=np.float64)
     n = np.ceil((b[:, 1] - b[:, 0]) / float(cell_size) - 1e-9).astype(int)
     return tuple(int(v) for v in n[:d])
+
+
+# ---------------------------------------------------------------------------
+# VM (TensoRF-style) factorized grids.
+# ---------------------------------------------------------------------------
+
+def vm_interpolate(planes, lines, x: torch.Tensor, bound: torch.Tensor):
+    """Low-rank vector-matrix interpolation.
+
+    planes: 'xy', 'xz', 'yz' -> (g_i, g_j, R) plane factors over the bound's
+    axis pairs; lines: 'x', 'y', 'z' -> (g_k, R) line factors.  Each factor
+    is interpolated with the rank-generic :func:`grid_interpolate` on its
+    axes' coordinates and sub-bound.  Returns the (N, R) products keyed
+    'xy_z', 'xz_y', 'yz_x'.
+    """
+    def factor(grid, cols):
+        return grid_interpolate(grid, x[:, cols], bound[cols])
+
+    return {
+        "xy_z": factor(planes["xy"], [0, 1]) * factor(lines["z"], [2]),
+        "xz_y": factor(planes["xz"], [0, 2]) * factor(lines["y"], [1]),
+        "yz_x": factor(planes["yz"], [1, 2]) * factor(lines["x"], [0]),
+    }
+
+
+def vm_basis_apply(basis, coeffs) -> torch.Tensor:
+    """(N, F) features: the sum over 'xy_z', 'xz_y', 'yz_x' of the (N, R)
+    coefficients times the transposed (F, R) basis, in float32."""
+    out = 0.0
+    for k in ("xy_z", "xz_y", "yz_x"):
+        out = out + fp32_matmul(coeffs[k], basis[k].t())
+    return out

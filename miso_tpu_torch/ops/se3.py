@@ -245,3 +245,23 @@ def gaussian_translations(n: int, std: float, generator: torch.Generator = None,
     """(n, 3) translations ~ N(0, std^2 I)."""
     device = generator.device if generator is not None else "cpu"
     return torch.randn((n, 3), generator=generator, dtype=dtype, device=device) * std
+
+
+def fixed_angle_rotations(n: int, rad: float, generator: torch.Generator = None,
+                          dtype=torch.float32):
+    """(n, 3, 3) rotations by exactly ``rad`` about axes drawn uniformly on
+    the sphere (normalised N(0, I) draws)."""
+    device = generator.device if generator is not None else "cpu"
+    axis = torch.randn((n, 3), generator=generator, dtype=dtype, device=device)
+    axis = axis / (torch.linalg.norm(axis, dim=-1, keepdim=True) + _EPS)
+    return so3_exp(axis * rad)
+
+
+def fixed_length_translations(n: int, length: float, generator: torch.Generator = None,
+                              dtype=torch.float32):
+    """(n, 3) translations of exactly ``length`` in directions drawn
+    uniformly on the sphere."""
+    device = generator.device if generator is not None else "cpu"
+    d = torch.randn((n, 3), generator=generator, dtype=dtype, device=device)
+    d = d / (torch.linalg.norm(d, dim=-1, keepdim=True) + _EPS)
+    return d * length

@@ -7,12 +7,15 @@ structure, so a file written by one package loads in the other:
 
   * a decoder ((W, b), ...):       ``[0]/[0]``, ``[0]/[1]``, ``[1]/[0]``, ...
   * a GridNet:                     ``.features/[0]``, ``.decoder/[0]/[1]``,
-                                   ``.rot_corr``, ... (``GridNet.tree_fields``)
+                                   ``.rot_corr``, ... (``GridNet.tree_fields``;
+                                   a VM level ``.features/[0]/['xy']``)
+  * the other models:              their ``tree_fields`` (``HashGridNet``,
+                                   ``ISDF``, ``PointSDF``)
   * a dict:                        ``['key']``; a NamedTuple: ``.field``.
 
 Leaves are tensors, numpy arrays, numbers and ``torch.Generator``s (saved as
 their state bytes).  :func:`load_pytree` rebuilds the structure of ``like``
-from a file; a GridNet in ``like`` is loaded in place.
+from a file; a model in ``like`` is loaded in place.
 """
 from __future__ import annotations
 
@@ -112,11 +115,14 @@ def _copy_into(dst, src):
     if isinstance(dst, (list, tuple)):
         for d, s in zip(dst, src):
             _copy_into(d, s)
+    if isinstance(dst, dict):
+        for k, d in dst.items():
+            _copy_into(d, src[k])
 
 
 def load_pytree(path: str, like: Any):
     """Load arrays saved by :func:`save_pytree` into the structure of ``like``:
-    tensors come back on the device of ``like``'s, a GridNet is filled in
+    tensors come back on the device of ``like``'s, a model is filled in
     place, a generator takes the saved state."""
     with np.load(path, allow_pickle=False) as data:
         return _load(like, "", data)

@@ -139,7 +139,8 @@ def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
     print the card's kernels and the aten operators by device time per step.
     The idle share is the part of the unprofiled window in which no kernel
     or copy ran.  Returns the step's wall ms (unprofiled and profiled),
-    device ms and idle share."""
+    device ms, idle share and its three largest kernels (name, device ms per
+    step, share of the device time)."""
     t0 = time.perf_counter()
     run(steps)
     synchronize()
@@ -169,8 +170,11 @@ def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"{e.self_device_time_total / 1e3 / steps:9.4f} {e.count / steps:10.1f}  "
               f"{e.key}")
+    largest = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:3]
     return dict(wall_ms=plain_wall_ms, profiled_wall_ms=wall_ms, device_ms=device_ms,
-                idle_share=idle, steps=steps)
+                idle_share=idle, steps=steps,
+                top_kernels=[dict(name=name, ms=ms, share=ms / device_ms)
+                             for name, (ms, _) in largest])
 
 
 def time_jitted(fn, *args, iters: int = 20, warmup: int = 2, **kwargs) -> Dict:

@@ -2,7 +2,7 @@
 """Where the port's steps spend their device time, on one CUDA card.
 
     python3 scripts/profile_torch_step.py
-        [mapping|mesh|slam|multisubmap|align|baselines|fuse|encode|all]
+        [mapping|mesh|slam|multisubmap|align|baselines|fuse|encode|alt|all]
                                           [--steps N] [--root DIR]
 
 ``mapping`` (the default): chip_smoke.py's main path, bench.py's mapping
@@ -59,6 +59,12 @@ F=4), N times after 2 warm-up calls; N pretraining steps a level there
 passes, the target level's backward, masked Adam); and the encoder init of
 a quad submap (phase 6's model, one keyframe's 2048 mapping points), N
 times.
+
+``alt``: chip_smoke.py phase 9's models, each built as the phase builds it
+(iSDF, the hash grid, PointSDF and the VM GridNet on phase 4's scene and
+2^15-point batches, tsdf_loss_3d without the eikonal, the base Trainer with
+Adam; the 2D GridNet on the phase's occupancy image with the Sdf2D loss):
+10 warm-up steps, then N training steps unprofiled and N profiled.
 
 For each window it prints the card, the wall time per step (host clock,
 synchronised) unprofiled and profiled, the device time per step summed over
@@ -428,6 +434,44 @@ def profile_encode(chip_smoke, steps):
                f"{obs.coords_world.shape[0]} points)")
 
 
+def profile_alt(chip_smoke, steps):
+    from miso_tpu_torch.config import cfg_loss, cfg_model
+    from miso_tpu_torch.datasets.sdf_2d import Sdf2D
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.train.trainer import Trainer
+
+    scene = TriangleMesh(*room_scene(4.0))
+    ds = Sdf3D(scene, batch_size=chip_smoke.MESH_BATCH,
+               total_samples=chip_smoke.MESH_SAMPLES, trunc_dist=0.3)
+    loss_fn = make_loss(tsdf_loss_3d, **chip_smoke.ALT_LOSS)
+    runs = []
+    for name in chip_smoke.ALT_MODELS:
+        cfg = {"model": {**chip_smoke.alt_model_cfg(name, ds.bound.tolist()),
+                         "name": chip_smoke.ALT_REGISTRY[name]}}
+        model = cfg_model(cfg, **({"mesh": scene} if name == "pointsdf" else {}))
+        runs.append((name, Trainer({"optimizer": "adam", "learning_rate": chip_smoke.ALT_LR[name]},
+                                   model, loss_fn, ds), chip_smoke.MESH_BATCH))
+    ds2 = Sdf2D(chip_smoke.alt_image(), cell_size=chip_smoke.ALT_2D["cell"])
+    model = create_grid_net(chip_smoke.alt_2d_cfg(ds2.bound.tolist()),
+                            generator=torch.Generator().manual_seed(0))
+    runs.append(("grid2d", Trainer({"optimizer": "adam", "learning_rate": chip_smoke.ALT_2D["lr"]},
+                                   model, cfg_loss({"loss": {"name": "Sdf2D"}}), ds2),
+                 ds2.batch_size))
+    for name, trainer, points in runs:
+        def run(n):
+            for _ in range(n):
+                trainer.train_epoch(0)
+
+        run(10)
+        torch.cuda.synchronize()
+        breakdown(f"{name} training step ({points} points)", run, steps)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_step: needs a CUDA card", file=sys.stderr)
@@ -435,7 +479,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("which", nargs="?", default="mapping",
                     choices=("mapping", "mesh", "slam", "multisubmap", "align", "baselines",
-                             "fuse", "encode", "all"))
+                             "fuse", "encode", "alt", "all"))
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--root", default=ROOT)
     args = ap.parse_args()
@@ -463,6 +507,8 @@ def main() -> int:
         profile_fuse(chip_smoke, args.steps)
     if which in ("encode", "all"):
         profile_encode(chip_smoke, args.steps)
+    if which in ("alt", "all"):
+        profile_alt(chip_smoke, args.steps)
     return 0
 
 

@@ -3,8 +3,8 @@
 * ``load_config`` of every ``configs/*.yaml`` (and an ``inherit_from``
   chain) equals the JAX package's;
 * ``cfg_model`` / ``cfg_loss`` / ``cfg_dataset`` / ``cfg_trainer`` build the
-  same objects for the ported names (values to 1e-5 relative, float32 sums
-  in another order) and raise ``NotImplementedError`` for the others;
+  same objects as the JAX package's (values to 1e-5 relative, float32 sums
+  in another order) and raise ``ValueError`` for unknown names;
 * ``save_pytree`` files interchange in both directions, a decoder saved by
   either package loads as a ``pretrained_model``;
 * a resumed CPU trainer is bit-identical to an uninterrupted one (the JAX
@@ -116,17 +116,96 @@ def test_cfg_loss_matches_jax(name):
         close(got[k], ref[k], dict(rtol=1e-5, atol=1e-6))
 
 
+ITEM6_MODELS = {
+    "isdf": {"isdf": {"hidden_size": 32, "hidden_layers_block": 2, "scale_output": 0.5},
+             "grid": {"bound": [[-1.0, 1.0], [-1.0, 1.2], [-0.5, 1.0]]},
+             "pose": {"num_poses": 3, "optimize": True}},
+    "ngp": {"hash": {"n_levels": 3, "feature_dim": 2, "base_resolution": 5,
+                     "per_level_scale": 1.7, "log2_hashmap_size": 8},
+            "grid": {"bound": [[-1.0, 1.0]] * 3},
+            "decoder": {"hidden_dim": 16, "hidden_layers": 1, "out_dim": 1,
+                        "pos_invariant": False}},
+    "pointsdf": {"point": {"total_samples": 600, "feature_dim": 4, "k_neighbors": 5,
+                           "resolution": 0.2, "hash_table_size": 2 ** 11,
+                           "num_nei_cells": 1, "bound": [[-1.0, 1.0]] * 3},
+                 "decoder": {"hidden_dim": 16, "num_layers": 2},
+                 "pose": {"num_frames": 2}},
+}
+
+
+def _item6_model(name):
+    """``model.name`` ``name``: the port's parameters and buffers against the
+    JAX registry's leaves (shapes, the drawn ones; values, the rest)."""
+    from miso_tpu.native import TriangleMesh as JMesh
+    from miso_tpu_torch.datasets.shapes import icosphere
+    from miso_tpu_torch.native import TriangleMesh
+    cfg = {"model": dict(ITEM6_MODELS[name], name=name), "seed": 3}
+    kw, jkw = {}, {}
+    if name == "pointsdf":
+        verts, tris = icosphere(2, 0.7)
+        kw, jkw = {"mesh": TriangleMesh(verts, tris)}, {"mesh": JMesh(verts, tris)}
+    got = t_config.cfg_model(cfg, device="cpu", **kw)
+    ref = j_config.cfg_model(cfg, jax.random.PRNGKey(0), **jkw)
+    assert type(got).__name__ == type(ref).__name__
+    leaves = j_ckpt._flatten_with_paths(ref)[0]
+    flat = t_ckpt._flatten_with_paths(got)
+    assert flat.keys() == leaves.keys()
+    for key, a in flat.items():
+        assert a.shape == leaves[key].shape and a.dtype == leaves[key].dtype, key
+    for buffer, b in got.named_buffers():
+        close(b, leaves["." + buffer], dict(rtol=0, atol=0))
+    assert got.optimize_pose == ref.optimize_pose
+    return cfg, lambda: t_config.cfg_model(cfg, device="cpu", **kw)
+
+
+def _item6_loss(name):
+    """``loss.name`` ``Sdf2D`` on the same batch and model function."""
+    cfg = {"loss": {"name": name, "sdf_weight": 7.0}}
+    rng = np.random.default_rng(4)
+    batch = {"coords": rng.uniform(0, 3, (64, 2)).astype(np.float32),
+             "sdf": rng.uniform(-1, 1, (64, 1)).astype(np.float32)}
+    got = t_config.cfg_loss(cfg)(lambda x: x[:, :1] * 0.5 - 0.2,
+                                 {k: t(v) for k, v in batch.items()}, None)
+    ref = j_config.cfg_loss(cfg)(lambda x: x[:, :1] * 0.5 - 0.2,
+                                 {k: jax.numpy.asarray(v) for k, v in batch.items()},
+                                 jax.random.PRNGKey(0))
+    assert got.keys() == ref.keys() == {"sdf"}
+    close(got["sdf"], ref["sdf"], dict(rtol=1e-5, atol=1e-6))
+    return cfg, lambda: t_config.cfg_loss(cfg)
+
+
+def _item6_dataset(name, tmp_path):
+    """``dataset.name`` ``Sdf2D`` from an image file and ``train.batch_size``:
+    the same SDF and the same batches from the same numpy generator."""
+    from PIL import Image
+    ii, jj = np.meshgrid(np.arange(40), np.arange(36), indexing="ij")
+    img = np.full((40, 36), 255, np.uint8)
+    img[(ii - 20) ** 2 + (jj - 15) ** 2 < 64] = 0
+    path = str(tmp_path / "occupancy.png")
+    Image.fromarray(img).save(path)
+    cfg = {"dataset": {"name": name, "path": path}, "train": {"batch_size": 300}}
+    got, ref = t_config.cfg_dataset(cfg), j_config.cfg_dataset(cfg)
+    np.testing.assert_array_equal(got.sdf, ref.sdf)
+    assert got.batch_size == ref.batch_size == 300
+    b, rb = got.sample(np.random.default_rng(1)), ref.sample(np.random.default_rng(1))
+    assert b.keys() == rb.keys()
+    for k in b:
+        np.testing.assert_array_equal(b[k], rb[k])
+    return cfg, lambda: t_config.cfg_dataset(cfg)
+
+
 @pytest.mark.parametrize("kind,name", [
     ("model", "isdf"), ("model", "pointsdf"), ("model", "ngp"),
     ("loss", "Sdf2D"), ("dataset", "Sdf2D")])
-def test_unported_entries_raise(kind, name):
-    cfg = _scannet()
-    cfg[kind] = dict(cfg.get(kind, {}), name=name)
-    build = {"model": lambda: t_config.cfg_model(cfg, device="cpu"),
-             "loss": lambda: t_config.cfg_loss(cfg),
-             "dataset": lambda: t_config.cfg_dataset(cfg)}[kind]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build()
+def test_cfg_builds_item6_entries(kind, name, tmp_path):
+    """The alternative models and the 2D SDF path through the registries,
+    matched to the JAX registry's; an unknown name still raises."""
+    if kind == "model":
+        cfg, build = _item6_model(name)
+    elif kind == "loss":
+        cfg, build = _item6_loss(name)
+    else:
+        cfg, build = _item6_dataset(name, tmp_path)
     with pytest.raises(ValueError, match="Unknown"):
         cfg[kind]["name"] = "no_such_entry"
         build()

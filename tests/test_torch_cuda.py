@@ -891,3 +891,84 @@ def test_sphere_tracing_a_grid_net_matches_the_cpu(dev):
     agree = (got_h.cpu() == ref_h)
     assert int(ref_h.sum()) > 0 and float(agree.float().mean()) > 0.999
     torch.testing.assert_close(got_p.cpu(), ref_p, atol=1e-4, rtol=0)
+
+
+def _alt_model(name, device):
+    """A small model of each alternative family, built on the CPU from a seed
+    and moved to ``device``; its loss's batch dimension (2 or 3)."""
+    from miso_tpu_torch.datasets.shapes import icosphere
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.models.hashgrid import create_hash_grid_net
+    from miso_tpu_torch.models.isdf import create_isdf
+    from miso_tpu_torch.models.pointsdf import create_pointsdf
+    gen = torch.Generator().manual_seed(4)
+    bound = [[-1.0, 1.0], [-1.0, 1.2], [-0.8, 1.0]]
+    decoder = {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+               "pos_invariant": True}
+    if name == "ngp":
+        model = create_hash_grid_net(
+            {"grid": {"bound": bound}, "decoder": decoder,
+             "hash": {"n_levels": 6, "feature_dim": 2, "base_resolution": 8,
+                      "per_level_scale": 1.6, "log2_hashmap_size": 12}},
+            generator=gen, device="cpu")
+    elif name == "isdf":
+        model = create_isdf({"grid": {"bound": bound}}, generator=gen, device="cpu")
+    elif name == "pointsdf":
+        model = create_pointsdf(
+            {"point": {"total_samples": 20000, "resolution": 0.1, "bound": bound},
+             "decoder": {"hidden_dim": 64}}, mesh=icosphere(3, 0.7), generator=gen,
+            device="cpu")
+    else:
+        grid = {"type": "VM" if name == "vm" else "regular", "feature_dim": 4,
+                "init_stddev": 0.1, "base_cell_size": 0.5, "per_level_scale": 5.0,
+                "n_levels": 2, "VM": {"rank": 10},
+                "bound": bound if name == "vm" else bound[:2]}
+        model = create_grid_net({"spatial_dim": 3 if name == "vm" else 2, "grid": grid,
+                                 "decoder": decoder}, generator=gen, device="cpu")
+    return model.to(device), (2 if name == "grid2d" else 3)
+
+
+@pytest.mark.parametrize("name", ["ngp", "isdf", "pointsdf", "vm", "grid2d"])
+def test_alt_models_match_the_cpu_and_launch(dev, name):
+    """Each alternative model's loss and gradients on the card against a CPU
+    copy; the hash grid, VM and 2D grids decode through the decode kernel
+    (one launch a forward), iSDF and PointSDF through none; no interp kernel
+    runs (the encodings and 2D/1D interpolation are torch ops)."""
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    cpu, d = _alt_model(name, torch.device("cpu"))
+    card = copy.deepcopy(cpu).to(dev)
+    rng = np.random.default_rng(1)
+    n = 2 ** 15
+    batch = {"coords": rng.uniform(-1.0, 1.0, (n, d)).astype(np.float32),
+             "sdf": rng.uniform(-0.3, 0.3, (n, 1)).astype(np.float32),
+             "sdf_valid": np.ones((n, 1), np.float32),
+             "sdf_signs": rng.integers(-1, 2, (n, 1)).astype(np.float32)}
+    loss = make_loss(tsdf_loss_3d, eik_weight=0.0, trunc_dist=0.2)
+    results = []
+    for m, device in ((card, dev), (cpu, torch.device("cpu"))):
+        _zero_align_counts()
+        tl = sum(loss(m, {k: torch.from_numpy(v).to(device) for k, v in batch.items()}).values())
+        params = [p for p in m.parameters() if p.requires_grad]
+        grads = torch.autograd.grad(tl, params, allow_unused=True)
+        results.append([tl] + [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params, grads)])
+        if device.type == "cuda":
+            want = 1 if name in ("ngp", "vm", "grid2d") else 0
+            assert _align_counts() == dict(interp=0, interp_grad=0, interp_points_grad=0,
+                                           slot=0, slot_grad=0, slot_points_grad=0,
+                                           decode=want, recompute=0)
+    torch.testing.assert_close(results[0][0].cpu(), results[1][0], atol=0, rtol=1e-5)
+    scale = max(float(g.abs().max()) for g in results[1][1:])
+    for a, b in zip(results[0][1:], results[1][1:]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4 * scale, rtol=0)
+
+
+def test_interp_dispatch_raises_on_a_2d_card_grid(dev):
+    """The interp kernels are 3D: the dispatch raises on a 2D card input (a 2D
+    GridNet calls the plain rank-generic op itself)."""
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
+    grid = torch.zeros((4, 5, 2), device=dev)
+    with pytest.raises(ValueError, match="3D"):
+        grid_interpolate_dispatch(grid, torch.zeros((3, 2), device=dev),
+                                  torch.tensor([[0.0, 1.0], [0.0, 1.0]], device=dev))
