@@ -205,10 +205,38 @@ Phases, in order; any failure exits non-zero and prints no result:
                image within 30 % of the JAX CPU run's; the decode kernel once
                per forward of the hash grid, VM and 2D models, never for iSDF
                and PointSDF, and no interp kernel in the whole phase, exact;
- 10. report  - the card, step times, kernel times against the bound, and the
+ 10. bf16    - bf16 feature storage and the apps: (a) every path a bf16
+               table takes through the interp and fused kernels against
+               its plain version on the same table (phase_bf16_kernels: the
+               ScanNet levels with 1e6 points, staged, paired and L2 forwards,
+               padded storage, F = 1, 3, 4, 12, 0 and 1 points, the slot-id
+               cases, all three backward modes; values 1e-4, a bf16 table's
+               gradient the float32 one rounded once: half a bf16 step plus
+               1e-4 of the largest entry), a float16 table and mixed levels
+               refused, bf16 times beside float32's with bounds at 2 bytes an
+               element and grid_sample on a bf16 volume; (b) the
+               test_bf16_features recipe trained on the card (MAE under 0.03
+               and within 30 % of the JAX CPU run, scripts/jax_apps.py);
+               (c) the demo CLIs (miso_tpu_torch.demo): build_submaps
+               --synthetic at its defaults (the final mesh's F-score within
+               5 points and Chamfer_L1 within 25 % of the JAX CPU run's),
+               align_submaps --atlas on its grid_atlas.npz with --method miso
+               --use_sdf (pose errors within 25 % of the JAX CPU run's: that
+               atlas does not realign in either package) and align_submaps
+               --method miso --use_sdf on its synthetic atlas (pose errors
+               under a third of the perturbation), the other three at a
+               small depth (finite readings, kernels launched); (d) phase 6's fused grid meshed from bf16 storage
+               (F-score within 0.5 points of float32's, lattice within 0.02
+               of the field's scale, the 512^3 field timed in both dtypes)
+               and a live view (slam/live_viewer.py) over a bf16 System run
+               of two submaps, /state.json read back, then the submaps
+               aligned and meshed on bf16 storage;
+     report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches summed over phase 3's
-               default-decode run, phases 4 to 9; the fused kernel's in phase
-               3's fused run); the last line is {"ok": true, "device": ...}.
+               default-decode run, phases 4 to 10; the fused kernel's in phase
+               3's fused run; each kernel's max_abs_err over its float32 and
+               bf16 checks, its bf16 times beside); the last line is
+               {"ok": true, "device": ...}.
 
 Phase 2 also holds the atlas queries (query_feature, query_stability,
 __call__) over 3 live slots of mixed bounds (padded storage) at the ScanNet
@@ -373,14 +401,16 @@ def _fused_bounds(grids, x, decoder):
     an output layer of at most 4 columns in FP32) and the lerp in FP32 on the
     CUDA cores: its least time is the larger of the two units' times and the
     bytes' (x read and the output written once, every table and the
-    weights).  The FP32 bound counts every FMA on the CUDA cores."""
+    weights; a table at its element size).  The FP32 bound counts every FMA
+    on the CUDA cores."""
     n = x.shape[0]
     fdim = grids[0].shape[-1]
     t_tc, t_dot = _mlp_op_ms(decoder, n)
     lerp_flops = 2.0 * 8 * len(grids) * fdim * n
     t_ops = max(t_tc, t_dot + lerp_flops / PEAK_FP32_FLOPS * 1e3)
-    nbytes = (x.numel() + n * decoder[-1][0].shape[1] + sum(g.numel() for g in grids)
-              + sum(W.numel() + b.numel() for W, b in decoder)) * 4
+    nbytes = ((x.numel() + n * decoder[-1][0].shape[1]
+               + sum(W.numel() + b.numel() for W, b in decoder)) * 4
+              + sum(g.numel() * g.element_size() for g in grids))
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     tc = (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
     mlp_fma = sum(W.shape[0] * W.shape[1] for W, _ in decoder)
@@ -621,12 +651,14 @@ def _interp_bounds(grid, x, need_x):
     """(ms, what bounds it) of one interp grad call (or forward): x, the
     cotangent (or the output) and the table once each, plus, with the points'
     gradient, a read of the table and 12 B a point; 2 FMA a corner and
-    feature, twice with the points' gradient."""
+    feature, twice with the points' gradient.  The table (and its gradient)
+    at its element size: 4 bytes, or 2 in bf16."""
     n, fdim = x.shape[0], grid.shape[-1]
-    nbytes = (x.numel() + n * fdim + grid.numel() + 6) * 4
+    table = grid.numel() * grid.element_size()
+    nbytes = (x.numel() + n * fdim + 6) * 4 + table
     flops = 2.0 * 8 * fdim * n
     if need_x:
-        nbytes += (grid.numel() + 3 * n) * 4
+        nbytes += table + 3 * n * 4
         flops *= 2
     return _bound(nbytes, flops)
 
@@ -918,11 +950,13 @@ def _slot_rows_touched(stacked, ids, x, bounds, sizes):
 
 
 def _slot_bounds(stacked, ids, x, bounds, sizes, points_only):
-    """(ms, "bytes") of one slot-id call: each touched row of F floats read
-    once, and per point its 12 B, its 4 B id and its output (4F B) or, for
-    the points-only backward, its cotangent (4F B) and gradient (12 B)."""
+    """(ms, "bytes") of one slot-id call: each touched row of F elements read
+    once (4 or 2 bytes each), and per point its 12 B, its 4 B id and its
+    output (4F B) or, for the points-only backward, its cotangent (4F B) and
+    gradient (12 B)."""
     n, F = x.shape[0], stacked.shape[-1]
-    nbytes = _slot_rows_touched(stacked, ids, x, bounds, sizes) * 4 * F + n * (16 + 4 * F)
+    nbytes = (_slot_rows_touched(stacked, ids, x, bounds, sizes) * stacked.element_size() * F
+              + n * (16 + 4 * F))
     if points_only:
         nbytes += 12 * n
     return _bound(nbytes, 2.0 * 8 * F * n * (2 if points_only else 1))
@@ -2211,14 +2245,16 @@ def consolidate_and_compare(atlas, mesh_bound, counters):
                                       max_abs=float(dd.max())))
 
 
-def fused_mesh(fused, mesh_bound, counters):
-    """save_mesh of the fused grid at QUAD_MESH_RESOLUTION^3: per lattice
-    chunk one interp forward per level and one decode."""
+def fused_mesh(fused, mesh_bound, counters, feature_dtype=None):
+    """save_mesh of the fused grid at QUAD_MESH_RESOLUTION^3 (its storage cast
+    to ``feature_dtype`` when given): per lattice chunk one interp forward per
+    level and one decode."""
     from miso_tpu_torch.utils.sdf import save_mesh
     torch.cuda.synchronize()
     _zero_counts(counters)
     t0 = time.perf_counter()
-    mesh = save_mesh(fused, mesh_bound, None, resolution=QUAD_MESH_RESOLUTION)
+    mesh = save_mesh(fused, mesh_bound, None, resolution=QUAD_MESH_RESOLUTION,
+                     feature_dtype=feature_dtype)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     c = _read_counts(counters)
@@ -2445,8 +2481,58 @@ def phase_quad(card):
           f"fused mesh Chamfer_L1 {recon['Chamfer_L1 (cm)']:.3f} cm not below "
           f"{QUAD_MAX_CHAMFER_CM:.3f} cm (the JAX package's CPU run + 25 %)")
     online.update(consolidation=cons, mesh=lattice, reconstruction=recon,
-                  sequences_s=seq_s, pretrain_s=pretrain_s)
+                  sequences_s=seq_s, pretrain_s=pretrain_s,
+                  mesh_bf16=bf16_fused_mesh(fused, mesh_bound, gt_sys, recon, counters, card))
     return online
+
+
+# Phase 10 (d): phase 6's fused grid meshed from bf16 storage, as
+# demo/full_slam_newer_college.py:631 meshes it: its F-score within 0.5
+# points of the float32 mesh's, its lattice within 0.02 of the float32
+# field's scale, and the demo's 512^3 field timed in both dtypes.
+QUAD_BF16_FSCORE_MARGIN = 0.5
+QUAD_BF16_FIELD_OF_SCALE = 0.02
+QUAD_FIELD_RESOLUTION = 512
+
+
+def bf16_fused_mesh(fused, mesh_bound, gt_sys, recon32, counters, card):
+    """The fused grid's mesh and lattice from bf16 storage against float32's,
+    and the 512^3 field's seconds in turns (float32, bf16, bf16, float32)."""
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics
+    from miso_tpu_torch.utils.sdf import cast_feature_storage, extract_fields
+    mesh16, lattice = fused_mesh(fused, mesh_bound, counters, feature_dtype="bfloat16")
+    recon16 = mesh_reconstruction_metrics(mesh16, gt_sys, n_points=100000,
+                                          threshold=QUAD_FSCORE_THRESH)
+    fused16 = cast_feature_storage(fused)
+    u32 = extract_fields(fused, mesh_bound, QUAD_MESH_RESOLUTION)
+    u16 = extract_fields(fused16, mesh_bound, QUAD_MESH_RESOLUTION)
+    scale = float(np.abs(u32).max())
+    field_err = float(np.abs(u16 - u32).max())
+    secs = {"f32": [], "bf16": []}
+    for label in ("f32", "bf16", "bf16", "f32"):
+        q = fused if label == "f32" else fused16
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        extract_fields(q, mesh_bound, QUAD_FIELD_RESOLUTION)
+        secs[label].append(time.perf_counter() - t0)
+    f32_s, bf16_s = min(secs["f32"]), min(secs["bf16"])
+    out = dict(lattice, reconstruction=recon16, field_max_abs_diff=field_err, field_scale=scale,
+               field_512_s_f32=f32_s, field_512_s_bf16=bf16_s, field_512_runs=secs,
+               table_bytes_f32=sum(f.numel() * 4 for f in fused.features),
+               table_bytes_bf16=sum(f.numel() * 2 for f in fused16.features))
+    log(f"  (d) fused mesh {QUAD_MESH_RESOLUTION}^3 from bf16 storage: F-score "
+        f"{recon16['F-score (%)']:.3f} % against float32's {recon32['F-score (%)']:.3f} %, "
+        f"Chamfer_L1 {recon16['Chamfer_L1 (cm)']:.3f} cm ({recon32['Chamfer_L1 (cm)']:.3f}); "
+        f"lattice max |bf16 - float32| {field_err:.4e} of scale {scale:.4f}; launches "
+        f"{lattice['launches']}; {QUAD_FIELD_RESOLUTION}^3 field {f32_s:.3f} s float32, "
+        f"{bf16_s:.3f} s bf16 ({card}; tables {out['table_bytes_f32']} B, "
+        f"{out['table_bytes_bf16']} B)")
+    check(abs(recon16["F-score (%)"] - recon32["F-score (%)"]) < QUAD_BF16_FSCORE_MARGIN,
+          f"bf16 fused mesh F-score {recon16['F-score (%)']:.3f} % not within "
+          f"{QUAD_BF16_FSCORE_MARGIN} points of float32's {recon32['F-score (%)']:.3f} %")
+    check(field_err <= QUAD_BF16_FIELD_OF_SCALE * scale,
+          f"bf16 fused lattice off float32's by {field_err:.4e}, scale {scale:.4f}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3494,14 +3580,16 @@ def alt_draws(feature_shapes, feature_std, dims, layernorm, seed=0):
 
 
 @torch.no_grad()
-def set_alt_draws(model, seed=0):
+def set_alt_draws(model, seed=0, std=None):
     """Replace a PointSDF's or a GridNet's features and decoder by
-    :func:`alt_draws` of their shapes; returns the model."""
+    :func:`alt_draws` of their shapes (features of std ``std``, else
+    PointSDF's 0.01 or the 2D grid's); returns the model."""
     pointsdf = isinstance(model.features, torch.nn.Parameter)
     features = [model.features] if pointsdf else list(model.features)
     Ws = [layer[0] if len(layer) == 2 else layer[2] for layer in model.decoder_params]
     dims = [W.shape[0] for W in Ws] + [Ws[-1].shape[1]]
-    std = 0.01 if pointsdf else ALT_2D_INIT_STD
+    if std is None:
+        std = 0.01 if pointsdf else ALT_2D_INIT_STD
     feats, layers = alt_draws([f.shape for f in features], std, dims, pointsdf, seed)
     for p, a in zip(features, feats):
         p.copy_(torch.as_tensor(a))
@@ -3758,6 +3846,659 @@ def phase_alt(card):
     return dict(models=models, grid2d=grid2d, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: bf16 feature storage (grid.feature_dtype: bfloat16) and the apps.
+# ---------------------------------------------------------------------------
+
+# Phase 10 (b): tests/test_train_e2e.py::test_bf16_features's recipe (an
+# icosphere, grid.feature_dtype bfloat16, 150 epochs), its MAE on a fresh
+# batch under the test's 0.03 and within 30 % of the JAX CPU run's.  Both
+# packages start from the same numpy draws (alt_draws of the model's shapes,
+# features of std init_stddev rounded to bf16, seed 0): the reading follows
+# the draws.  Over keys 0-7 (scripts/bf16_recipe_spread.py on an H100,
+# scripts/jax_apps.py --bf16_keys on the CPU; PERF.md) the shared draws read
+# 0.00382 +- 0.00039 against JAX's 0.00380 +- 0.00043, each package's own
+# 0.00375 +- 0.00059 against 0.00359 +- 0.00027.
+APPS_BF16 = dict(
+    dataset=dict(batch_size=2 ** 12, total_samples=2 ** 15, surface_stddev=0.05,
+                 bound_buffer=0.4, trunc_dist=0.2),
+    loss=dict(sdf_weight=3e3, sign_weight=1e2, eik_weight=0.0, trunc_dist=0.2),
+    train={"optimizer": "adam", "learning_rate": 5e-3, "epochs": 150, "max_epochs_in_level": 50,
+           "grid_training_mode": "coordinate+joint"},
+    eval_seed=3)
+APPS_BF16_MAX_MAE = 0.03
+APPS_BF16_MARGIN = 0.30
+
+
+def apps_bf16_cfg(bound):
+    """tests/test_train_e2e.py:129-138's model over ``bound``."""
+    return {"spatial_dim": 3,
+            "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 1e-4,
+                     "feature_dtype": "bfloat16", "bound": bound, "base_cell_size": 0.5,
+                     "per_level_scale": 2.0, "n_levels": 2},
+            "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                        "pos_invariant": True, "fix": False, "pretrained_model": None},
+            "pose": {"optimize": False, "num_poses": 1}}
+
+
+# Phase 10 (c): build_submaps --synthetic's final mesh against the room
+# (as the SLAM demo scores its mesh), and align_submaps --atlas --method
+# miso --use_sdf's perturbation and alignment at its defaults.
+APPS_MESH_METRICS = dict(n_points=100000, threshold=0.05, truncation=0.5)
+APPS_ALIGN = dict(noise_deg=3.0, noise_m=0.15, iters=150, lr=5e-3, seed=0)
+
+
+# A bf16 table's gradient is its float32 gradient rounded once to bf16: the
+# kernel sums in float32 scratch copies, the plain version in float32 by
+# index_add_, in another order.  Where the two float32 sums straddle a bf16
+# rounding boundary they round to neighbours one bf16 step apart, so each
+# entry is held to the plain version's float32 gradient within half a bf16
+# step of that entry (at most 2^-8 of it) beyond 1e-4 of the largest entry.
+BF16_HALF_STEP = 2.0 ** -8
+
+
+def _check_bf16_grad(name, got, ref32, errs):
+    """A bf16 table gradient against the plain version's float32 gradient:
+    the largest excess of |kernel - plain| over half a bf16 step of the plain
+    entry, within 1e-4 of the largest entry."""
+    check(got.dtype == torch.bfloat16, f"{name}: gradient is {got.dtype}, not bfloat16")
+    check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+    excess = ((got.float() - ref32).abs() - BF16_HALF_STEP * ref32.abs()).clamp(min=0)
+    err = float(excess.max()) if excess.numel() else 0.0
+    scale = float(ref32.abs().max()) if ref32.numel() else 0.0
+    errs[name] = err
+    check(err <= GRAD_RTOL_OF_MAX * max(scale, 1e-6),
+          f"{name}: |kernel - plain| exceeds half a bf16 step by {err:.3e}, max |plain| = "
+          f"{scale:.3e}")
+    log(f"  {name}: |kernel - plain| beyond half a bf16 step {err:.3e} (tol "
+        f"{GRAD_RTOL_OF_MAX} x {scale:.3e}) ok")
+
+
+def _bf16_interp_check(name, grid, x, bound, size, errs, seed):
+    """A bf16 table through the interp forward and all three backward modes
+    against the plain versions on the same table."""
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain,
+                                                 grid_interpolate_plain)
+    n = x.shape[0]
+    got = grid_interpolate_cuda(grid, x, bound, size)
+    check(got.dtype == torch.float32 and got.shape == (n, grid.shape[-1]),
+          f"interp_{name}: output {got.dtype} {tuple(got.shape)}")
+    if n:
+        _check_values(f"interp_{name}", got, grid_interpolate_plain(grid, x, bound, size), errs)
+    cot = torch.randn((n, grid.shape[-1]), generator=torch.Generator(
+        device=x.device).manual_seed(seed), device=x.device)
+    r_grid, r_x = grid_interpolate_grad_plain(grid.float(), x, bound, cot, size)
+    d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, cot, size)
+    _check_bf16_grad(f"interp_grad_{name}_table", d_grid, r_grid, errs)
+    only, none = grid_interpolate_grad_cuda(grid, x, bound, cot, size, need_x=False)
+    check(none is None, "need_x=False returned a points' gradient")
+    _check_bf16_grad(f"interp_grad_{name}_table_only", only, r_grid, errs)
+    none, p_x = grid_interpolate_grad_cuda(grid, x, bound, cot, size, need_grid=False)
+    check(none is None and p_x.shape == (n, 3), "points-only mode: wrong outputs")
+    if n:
+        _check_grad(f"interp_grad_{name}_points", d_x, r_x, errs)
+        _check_grad(f"points_only_{name}", p_x, r_x, errs)
+
+
+def _bf16_times(grid32, x, bound, cot):
+    """One level's calls with its float32 table and the same table in bf16,
+    taken in turns: forward, backward table only, with the points' gradient,
+    points only (call ms by CUDA events, device ms by the profiler), the bf16
+    plain version, grid_sample on the bf16 volume (forward; backward, the
+    table's gradient), and each call's bound at its table's element size."""
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain,
+                                                 grid_interpolate_plain)
+    grid16 = grid32.to(torch.bfloat16)
+    calls = {
+        "fwd": lambda g: grid_interpolate_cuda(g, x, bound),
+        "grad": lambda g: grid_interpolate_grad_cuda(g, x, bound, cot, need_x=False),
+        "grad_x": lambda g: grid_interpolate_grad_cuda(g, x, bound, cot),
+        "points_only": lambda g: grid_interpolate_grad_cuda(g, x, bound, cot,
+                                                            need_grid=False)}
+    plains = {
+        "fwd": lambda: grid_interpolate_plain(grid16, x, bound),
+        "grad": lambda: grid_interpolate_grad_plain(grid16, x, bound, cot, need_x=False),
+        "grad_x": lambda: grid_interpolate_grad_plain(grid16, x, bound, cot),
+        "points_only": lambda: grid_interpolate_grad_plain(grid16, x, bound, cot,
+                                                           need_grid=False)}
+    rec = {"fwd_path_bf16": _fwd_path(grid16, x.shape[0]),
+           "fwd_path_f32": _fwd_path(grid32, x.shape[0])}
+    with torch.no_grad():
+        for key, call in calls.items():
+            t = {}
+            for label, g in (("f32", grid32), ("bf16", grid16), ("bf16", grid16),
+                             ("f32", grid32)):
+                t.setdefault(label + "_ms", []).append(cuda_ms(lambda: call(g)))
+            r = {k: min(v) for k, v in t.items()}
+            r["f32_device_ms"] = _kernel_device_ms(lambda: call(grid32))
+            r["bf16_device_ms"] = _kernel_device_ms(lambda: call(grid16))
+            r["plain_ms"] = cuda_ms(plains[key])
+            need_x = key in ("grad_x", "points_only")
+            r["bound_ms"], r["bound_by"] = _interp_bounds(grid16, x, need_x)
+            r["f32_bound_ms"] = _interp_bounds(grid32, x, need_x)[0]
+            rec[key] = r
+    # grid_sample takes its sampling grid in its input's dtype: the points go
+    # in as bf16, so this is the time of a like call, not of the same function
+    # to float32 precision.
+    vol, coords = _grid_sample_inputs(grid16, x, bound)
+    coords = coords.to(torch.bfloat16)
+    with torch.no_grad():
+        rec["fwd"]["library_ms"] = cuda_ms(lambda: _grid_sample(vol, coords))
+    vol_r = vol.clone().requires_grad_()
+    out = _grid_sample(vol_r, coords)
+    gout = cot.T.reshape(out.shape).to(torch.bfloat16).contiguous()
+    rec["grad"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, vol_r, gout,
+                                                                    retain_graph=True))
+    return rec
+
+
+def phase_bf16_kernels():
+    """Phase 10 (a): every kernel path a bf16 table takes against its plain
+    version on the same table (ScanNet widths, 1e6 points, and the edge
+    cases of the float32 checks), a table of another dtype and mixed levels
+    raising, and the bf16 calls' times beside float32's."""
+    from miso_tpu_torch.ops.fused_decode import (fused_interp_decode_cuda,
+                                                 fused_interp_decode_plain)
+    from miso_tpu_torch.ops.tiled_interp import (
+        INTERP_STAGED_BLOCKS, grid_interpolate_cuda, grid_interpolate_per_point_cuda,
+        grid_interpolate_per_point_grad_cuda, grid_interpolate_per_point_grad_plain,
+        grid_interpolate_per_point_plain, grid_interpolate_plain, smem_budget, table_bytes)
+    errs, times = {}, {}
+    bf16 = torch.bfloat16
+    g = SCANNET_MODEL["grid"]
+    fine_cell = g["base_cell_size"] / g["per_level_scale"]
+    dev = torch.device("cuda")
+    with torch.no_grad():
+        cases = [("fine_F4_bf16", g["bound"], fine_cell, 4, N_POINTS),
+                 ("coarse_F4_bf16", g["bound"], g["base_cell_size"], 4, N_POINTS),
+                 ("coarse_F1_bf16", g["bound"], g["base_cell_size"], 1, N_POINTS),
+                 ("coarse_F12_bf16", g["bound"], g["base_cell_size"], 12, N_POINTS),
+                 ("coarse_F3_bf16", g["bound"], g["base_cell_size"], 3, N_POINTS),
+                 ("mesh_fine_bf16", MESH_BOUND, 0.1, 4, 2 ** 15)]
+        for seed, (name, bl, cell, fdim, n) in enumerate(cases, start=300):
+            grid, x, bound = _grid_case(bl, cell, fdim, n, seed)
+            grid = grid.to(bf16)
+            log(f"  interp {name}: grid {tuple(grid.shape)} bf16, {n} points, forward path "
+                f"{_fwd_path(grid, n)}")
+            _bf16_interp_check(name, grid, x, bound, None, errs, seed + 50)
+        grid, x, bound = _grid_case(g["bound"], fine_cell, 4, N_POINTS, 310)
+        grid = grid.to(bf16)
+        for k in (0, 1):
+            _bf16_interp_check(f"fine_F4_bf16_n{k}", grid, x[:k].contiguous(), bound, None,
+                               errs, 311)
+        # Padded storage with a logical size (the atlas's slots) at both levels.
+        for fdim, cell in ((4, fine_cell), (4, g["base_cell_size"]), (3, g["base_cell_size"])):
+            grid, x, bound = _grid_case(g["bound"], cell, fdim, N_POINTS, 320 + fdim)
+            padded = 10.0 * torch.randn((grid.shape[0] + 3, grid.shape[1] + 2,
+                                         grid.shape[2] + 1, fdim), device=dev)
+            padded[:grid.shape[0], :grid.shape[1], :grid.shape[2]] = grid
+            padded = padded.to(bf16)
+            size = torch.tensor(grid.shape[:3], dtype=torch.int32, device=dev)
+            level = "coarse" if cell == g["base_cell_size"] else "fine"
+            log(f"  interp {level} sized F={fdim} bf16: storage {tuple(padded.shape)}, forward "
+                f"path {_fwd_path(padded, N_POINTS)}")
+            _bf16_interp_check(f"{level}_sized_F{fdim}_bf16", padded, x, bound, size, errs,
+                               330 + fdim)
+        # A bf16 table just under and just over the forward's staging budget.
+        rows = smem_budget(INTERP_STAGED_BLOCKS) // 8
+        for name, z in (("budget_under_bf16", rows // 64), ("budget_over_bf16", rows // 64 + 1)):
+            grid, x, bound = _shaped_case((8, 8, z, 4), N_POINTS, 340)
+            grid = grid.to(bf16)
+            got = _fwd_path(grid, N_POINTS)
+            check(got == ("staged" if name == "budget_under_bf16" else "pairs"),
+                  f"interp {name}: {table_bytes(grid)} B taken {got}")
+            log(f"  interp {name}: grid {tuple(grid.shape)} ({table_bytes(grid)} B), forward "
+                f"path {got}")
+            _check_values(f"interp_{name}", grid_interpolate_cuda(grid, x, bound),
+                          grid_interpolate_plain(grid, x, bound), errs)
+
+        # The slot-id mode on every SLOT_CASES shape.
+        for i, (name, pad, F, sizes, n) in enumerate(SLOT_CASES):
+            stacked, ids, x, bounds, sz = slot_case(pad, F, sizes, n, 350 + i)
+            stacked = stacked.to(bf16)
+            tag = f"{name}_bf16"
+            got = grid_interpolate_per_point_cuda(stacked, ids, x, bounds, sz)
+            check(got.shape == (n, F) and got.dtype == torch.float32,
+                  f"slot_{tag}: output {got.dtype} {tuple(got.shape)}")
+            if n:
+                _check_values(f"slot_{tag}", got, grid_interpolate_per_point_plain(
+                    stacked, ids, x, bounds, sz), errs)
+            cot = torch.randn((n, F), generator=torch.Generator(device=dev).manual_seed(
+                360 + i), device=dev)
+            r_st, r_x = grid_interpolate_per_point_grad_plain(stacked.float(), ids, x, bounds,
+                                                              sz, cot)
+            d_st, d_x = grid_interpolate_per_point_grad_cuda(stacked, ids, x, bounds, sz, cot)
+            _check_bf16_grad(f"slot_grad_{tag}_table", d_st, r_st, errs)
+            only, _ = grid_interpolate_per_point_grad_cuda(stacked, ids, x, bounds, sz, cot,
+                                                           need_x=False)
+            _check_bf16_grad(f"slot_grad_{tag}_table_only", only, r_st, errs)
+            _, p_x = grid_interpolate_per_point_grad_cuda(stacked, ids, x, bounds, sz, cot,
+                                                          need_grid=False)
+            if n:
+                _check_grad(f"slot_grad_{tag}_points", d_x, r_x, errs)
+                _check_grad(f"slot_points_only_{tag}", p_x, r_x, errs)
+            if name == "quad_fine_F4":
+                st32 = stacked.float()
+                args16 = (stacked, ids, x, bounds, sz)
+                args32 = (st32, ids, x, bounds, sz)
+                fwd_b = _slot_bounds(*args16, points_only=False)
+                bwd_b = _slot_bounds(*args16, points_only=True)
+                times["slot_" + name] = dict(
+                    points=n, storage=list(pad) + [F],
+                    fwd=dict(
+                        f32_device_ms=_kernel_device_ms(
+                            lambda: grid_interpolate_per_point_cuda(*args32),
+                            "grid_interp_forward_kernel"),
+                        bf16_device_ms=_kernel_device_ms(
+                            lambda: grid_interpolate_per_point_cuda(*args16),
+                            "grid_interp_forward_kernel"),
+                        bf16_ms=cuda_ms(lambda: grid_interpolate_per_point_cuda(*args16)),
+                        plain_ms=cuda_ms(lambda: grid_interpolate_per_point_plain(*args16)),
+                        bound_ms=fwd_b[0], bound_by=fwd_b[1], library_ms=None),
+                    points_only=dict(
+                        f32_device_ms=_kernel_device_ms(
+                            lambda: grid_interpolate_per_point_grad_cuda(
+                                *args32, cot, need_grid=False), "grid_interp_points_grad"),
+                        bf16_device_ms=_kernel_device_ms(
+                            lambda: grid_interpolate_per_point_grad_cuda(
+                                *args16, cot, need_grid=False), "grid_interp_points_grad"),
+                        bf16_ms=cuda_ms(lambda: grid_interpolate_per_point_grad_cuda(
+                            *args16, cot, need_grid=False)),
+                        plain_ms=cuda_ms(lambda: grid_interpolate_per_point_grad_plain(
+                            *args16, cot, need_grid=False)),
+                        bound_ms=bwd_b[0], bound_by=bwd_b[1], library_ms=None))
+
+        # The fused kernel: the ScanNet widths (coarse level staged, fine from
+        # L2), padded levels with ignore_level, and base.yaml's shape.
+        scannet_cells = [g["base_cell_size"] / g["per_level_scale"] ** l
+                         for l in range(g["n_levels"])]
+        grids, x, bound, decoder = _setup(g["bound"], scannet_cells, 4, 64, 1, 1, N_POINTS,
+                                          seed=370)
+        grids16 = [t.to(bf16) for t in grids]
+        occ = _fused_check("scannet_bf16", (grids16, x, bound, decoder), errs)
+        padded, sizes = _pad(grids, 371)
+        ignore = torch.tensor([0.0, 1.0], device=dev)
+        _fused_check("scannet_sized_ignore_bf16",
+                     ([t.to(bf16) for t in padded], x, bound, decoder, sizes, ignore), errs)
+        g1, x1, b1, d1 = _setup([[-1.0, 1.0]] * 3, [0.5], 1, 8, 0, 1, 4099, seed=372)
+        _fused_check("base_F1_bf16", ([t.to(bf16) for t in g1], x1, b1, d1), errs)
+        (t32_ms, t16_ms) = ([], [])
+        for label in ("f32", "bf16", "bf16", "f32"):
+            gs = grids if label == "f32" else grids16
+            (t32_ms if label == "f32" else t16_ms).append(cuda_ms(
+                lambda: fused_interp_decode_cuda(gs, x, bound, decoder)))
+        (tb, tby), _ = _fused_bounds(grids16, x, decoder)
+        times["fused_scannet"] = dict(
+            f32_ms=min(t32_ms), bf16_ms=min(t16_ms),
+            f32_device_ms=_kernel_device_ms(lambda: fused_interp_decode_cuda(
+                grids, x, bound, decoder)),
+            bf16_device_ms=_kernel_device_ms(lambda: fused_interp_decode_cuda(
+                grids16, x, bound, decoder)),
+            plain_ms=cuda_ms(lambda: fused_interp_decode_plain(grids16, x, bound, decoder)),
+            bound_ms=tb, bound_by=tby, f32_bound_ms=_fused_bounds(grids, x, decoder)[0][0],
+            levels_staged=occ["staged"], library_ms=None)
+
+        # What the kernels refuse: a table of another dtype, levels of two.
+        for what, call in (
+                ("interp", lambda: grid_interpolate_cuda(grids[0].half(), x, bound)),
+                ("slot-id", lambda: grid_interpolate_per_point_cuda(
+                    grids[0].half()[None], torch.zeros(x.shape[0], dtype=torch.int32,
+                                                       device=dev), x, bound[None],
+                    torch.tensor([grids[0].shape[:3]], dtype=torch.int32, device=dev))),
+                ("fused", lambda: fused_interp_decode_cuda([t.half() for t in grids], x, bound,
+                                                           decoder)),
+                ("fused mixed", lambda: fused_interp_decode_cuda([grids[0], grids16[1]], x,
+                                                                 bound, decoder))):
+            try:
+                call()
+            except TypeError as e:
+                log(f"  {what}: refused ({e})")
+            else:
+                raise SmokeFailure(f"{what}: a float16 or mixed table was not refused")
+
+    # bf16 against float32 at the ScanNet levels with 1e6 points.
+    for seed, (name, bl, cell, n) in enumerate(INTERP_SHAPES[:2], start=380):
+        grid, x, bound = _grid_case(bl, cell, 4, n, seed)
+        cot = torch.randn((n, 4), generator=torch.Generator(device=dev).manual_seed(seed),
+                          device=dev)
+        rec = _bf16_times(grid, x, bound, cot)
+        times[name] = rec
+        log(f"  {name} {tuple(grid.shape)}, {n} points, forward path bf16 "
+            f"{rec['fwd_path_bf16']} (float32 {rec['fwd_path_f32']}): " + "; ".join(
+                f"{k} bf16 {v['bf16_ms']:.4f} ms (device {v['bf16_device_ms']:.4f}) against "
+                f"float32 {v['f32_ms']:.4f} (device {v['f32_device_ms']:.4f}), bound "
+                f"{v['bound_ms']:.4f} ({v['f32_bound_ms']:.4f}), plain {v['plain_ms']:.4f}"
+                + (f", grid_sample bf16 {v['library_ms']:.4f}" if "library_ms" in v else "")
+                for k, v in ((k, rec[k]) for k in ("fwd", "grad", "grad_x", "points_only"))))
+    f = times["fused_scannet"]
+    log(f"  fused ScanNet widths bf16 {f['bf16_ms']:.4f} ms (device {f['bf16_device_ms']:.4f}) "
+        f"against float32 {f['f32_ms']:.4f} (device {f['f32_device_ms']:.4f}), bound "
+        f"{f['bound_ms']:.4f} ({f['bound_by']}), plain {f['plain_ms']:.4f}, levels staged "
+        f"{f['levels_staged']}")
+    q = times["slot_quad_fine_F4"]
+    log(f"  slot-id quad_fine_F4 bf16: forward device {q['fwd']['bf16_device_ms']:.4f} ms "
+        f"(float32 {q['fwd']['f32_device_ms']:.4f}), points-only device "
+        f"{q['points_only']['bf16_device_ms']:.4f} ({q['points_only']['f32_device_ms']:.4f}), "
+        f"bounds {q['fwd']['bound_ms']:.5f} / {q['points_only']['bound_ms']:.5f}")
+    return errs, times
+
+
+# The JAX package's CPU runs of phase 10's recipes (JAX_PLATFORMS=cpu python3
+# scripts/jax_apps.py, 40-60 s on 8 CPU cores): test_bf16_features's MAE;
+# demo/build_submaps.py --synthetic's final 256^3 mesh against the room
+# (APPS_MESH_METRICS); that atlas aligned from 3.000 deg / 15.0 cm as the
+# port's align_submaps --atlas --method miso --use_sdf aligns it (the JAX
+# demo has no --atlas path: the script runs the port's procedure on the JAX
+# package); demo/align_submaps.py --method miso --use_sdf on its own
+# synthetic atlas.  The build_submaps atlas does not realign in either
+# package (ROADMAP Queue 3): its readings are held to the JAX run's within
+# APPS_ALIGN_ATLAS_MARGIN, and the synthetic atlas, whose alignment
+# converges, to a third of the perturbation.
+JAX_APPS_BF16_MAE = 0.004309265408664942
+JAX_APPS_BUILD_FSCORE = 14.693239820262196
+JAX_APPS_BUILD_CHAMFER_CM = 14.9734768393772
+JAX_APPS_ALIGN_AFTER = (52.186893463134766, 1.3256405591964722)
+JAX_APPS_ALIGN_SYNTHETIC_AFTER = (0.36045199632644653, 0.012236502021551132)
+APPS_FSCORE_MARGIN = 5.0
+APPS_CHAMFER_MARGIN = 0.25
+APPS_ALIGN_ATLAS_MARGIN = 0.25
+# The other three demos at a small depth: their synthetic pretraining cut
+# (full_slam_scannet.PRETRAIN_EPOCHS, full_slam_newer_college.ENCODER_EPOCHS)
+# and these arguments.
+APPS_SMALL_PRETRAIN = 60
+APPS_SMALL_ENCODER = 30
+APPS_SMALL_ARGS = {
+    "full_slam_scannet": ["--synthetic", "--num_frames", "6", "--final_iters", "30",
+                          "--mesh_resolution", "128"],
+    "full_slam_newer_college": ["--synthetic", "--scene", "quad", "--num_frames", "6",
+                                "--submap_size", "3", "--init_mode", "encode",
+                                "--mesh_resolution", "128"],
+    "encoder_init": ["--pretrain_epochs", "30", "--encoder_epochs", "20", "--eval_epochs",
+                     "0", "5"],
+}
+APPS_DIR = os.path.join(ROOT, "results", "torch", "chip_smoke")
+
+
+def apps_bf16_setup(seed=0, own_draws=False, device="cuda"):
+    """The test_bf16_features recipe on ``device``: its icosphere dataset and
+    a GridTrainer of a bf16 GridNet that starts from alt_draws(seed) (the
+    draws scripts/jax_apps.py gives the JAX package), or with ``own_draws``
+    from the port's own initializer seeded ``seed``."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.datasets.shapes import icosphere
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.train.trainer import GridTrainer
+    r = APPS_BF16
+    ds = Sdf3D(TriangleMesh(*icosphere(3, 0.6)), **r["dataset"])
+    model = create_grid_net(apps_bf16_cfg(ds.bound.tolist()),
+                            generator=torch.Generator().manual_seed(seed), device=device)
+    if not own_draws:
+        set_alt_draws(model, seed, std=apps_bf16_cfg(None)["grid"]["init_stddev"])
+    check(all(f.dtype == torch.bfloat16 for f in model.features), "features are not bf16")
+    return ds, GridTrainer(r["train"], model, make_loss(tsdf_loss_3d, **r["loss"]), ds)
+
+
+@torch.no_grad()
+def apps_bf16_mae(model, ds):
+    """The recipe's reading: the SDF MAE on the valid samples of a fresh
+    batch (numpy default_rng(APPS_BF16["eval_seed"]))."""
+    b = ds.sample(np.random.default_rng(APPS_BF16["eval_seed"]))
+    x = torch.as_tensor(b["coords"], device=model.features[0].device)
+    pred = model(x).reshape(-1).float().cpu().numpy()
+    valid = b["sdf_valid"].reshape(-1) > 0
+    return float(np.abs(pred - b["sdf"].reshape(-1))[valid].mean())
+
+
+def apps_bf16_training(counters):
+    """Phase 10 (b): the test_bf16_features recipe on the card.  Every step
+    launches the interp forward and backward on the bf16 tables (one each a
+    level) and the decode; the tables stay bf16.  Gates: MAE under 0.03 and
+    within APPS_BF16_MARGIN of the JAX CPU run's."""
+    r = APPS_BF16
+    ds, trainer = apps_bf16_setup()
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    model = trainer.train()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    c = _read_counts(counters)
+    epochs, L = r["train"]["epochs"], model.num_levels
+    want = dict(interp=L * epochs, interp_grad=L * epochs, decode=epochs, interp_points_grad=0,
+                fused=0, interp_recompute_backward=0)
+    for name, n in _exact(want).items():
+        check(c[name] == n, f"bf16 training: {name} launched {c[name]} times, expected {n}")
+    check(all(f.dtype == torch.bfloat16 for f in model.features), "training left bf16")
+    mae = apps_bf16_mae(model, ds)
+    log(f"  (b) bf16 training: {epochs} epochs in {seconds:.2f} s, MAE {mae:.6f} (the JAX "
+        f"package's CPU run {JAX_APPS_BF16_MAE:.6f}); launches {c}")
+    check(mae < APPS_BF16_MAX_MAE, f"bf16 training MAE {mae:.4f} not under {APPS_BF16_MAX_MAE}")
+    check(abs(mae - JAX_APPS_BF16_MAE) <= APPS_BF16_MARGIN * JAX_APPS_BF16_MAE,
+          f"bf16 training MAE {mae:.5f} not within {APPS_BF16_MARGIN:.0%} of the JAX CPU "
+          "run's")
+    return dict(mae=mae, seconds=seconds, launches=c, epochs=epochs)
+
+
+def _run_cli(name, argv, counters, constants=()):
+    """``miso_tpu_torch.demo.<name>.main(argv)`` on the card, counted, with
+    module constants (module, name, value) set for the run; returns (its
+    results, launches, seconds)."""
+    import importlib
+    saved = []
+    for module, attr, value in constants:
+        mod = importlib.import_module(f"miso_tpu_torch.demo.{module}")
+        saved.append((mod, attr, getattr(mod, attr)))
+        setattr(mod, attr, value)
+    try:
+        demo = importlib.import_module(f"miso_tpu_torch.demo.{name}")
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        t0 = time.perf_counter()
+        res = demo.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        for mod, attr, value in saved:
+            setattr(mod, attr, value)
+    return res, _read_counts(counters), seconds
+
+
+def _finite(tree):
+    """Every number in a nested results dict is finite."""
+    if isinstance(tree, dict):
+        return all(_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_finite(v) for v in tree)
+    return not isinstance(tree, float) or bool(np.isfinite(tree))
+
+
+def apps_clis(counters, card):
+    """Phase 10 (c): the demo CLIs on the card.  build_submaps --synthetic at
+    its defaults, its final mesh against the room (F-score within
+    APPS_FSCORE_MARGIN points and Chamfer_L1 within APPS_CHAMFER_MARGIN of the
+    JAX CPU run's); align_submaps --atlas on its grid_atlas.npz with --method
+    miso --use_sdf at its defaults (both pose errors within
+    APPS_ALIGN_ATLAS_MARGIN of the JAX CPU run's, which diverges) and
+    align_submaps --method miso --use_sdf on its synthetic atlas (both pose
+    errors under a third of the perturbation); the other three at a small
+    depth (finite readings, their kernels launched)."""
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics
+    from miso_tpu_torch.utils.sdf import read_ply
+    report = {}
+    build_dir = os.path.join(APPS_DIR, "build_submaps")
+    res, c, sec = _run_cli("build_submaps", ["--synthetic", "--save_dir", build_dir], counters)
+    mesh = TriangleMesh(*read_ply(os.path.join(build_dir, "mesh_final.ply")))
+    m = mesh_reconstruction_metrics(mesh, TriangleMesh(*room_scene(5.0, seed=0)),
+                                    **APPS_MESH_METRICS)
+    report["build_submaps"] = dict(results=res, launches=c, seconds=sec, mesh=m)
+    log(f"  (c) build_submaps --synthetic: {res['num_submaps']} submaps, {sec:.2f} s "
+        f"(mapping {res['mapping_time_sec']:.2f} s; {card}); final mesh F-score "
+        f"{m['F-score (%)']:.3f} %, Chamfer_L1 {m['Chamfer_L1 (cm)']:.3f} cm (the JAX package's "
+        f"CPU run {JAX_APPS_BUILD_FSCORE:.3f} %, {JAX_APPS_BUILD_CHAMFER_CM:.3f} cm); "
+        f"launches {c}")
+    check(c["interp"] > 0 and c["interp_grad"] > 0 and c["decode"] > 0,
+          f"build_submaps: kernels not launched ({c})")
+    check(abs(m["F-score (%)"] - JAX_APPS_BUILD_FSCORE) < APPS_FSCORE_MARGIN,
+          f"build_submaps F-score {m['F-score (%)']:.3f} not within {APPS_FSCORE_MARGIN} "
+          "points of the JAX CPU run's")
+    check(abs(m["Chamfer_L1 (cm)"] - JAX_APPS_BUILD_CHAMFER_CM)
+          <= APPS_CHAMFER_MARGIN * JAX_APPS_BUILD_CHAMFER_CM,
+          f"build_submaps Chamfer_L1 {m['Chamfer_L1 (cm)']:.3f} cm not within "
+          f"{APPS_CHAMFER_MARGIN:.0%} of the JAX CPU run's")
+
+    third = (APPS_ALIGN["noise_deg"] / 3, APPS_ALIGN["noise_m"] / 3)
+    for name, atlas_args, jax_after in (
+            ("align_submaps", ["--atlas", os.path.join(build_dir, "grid_atlas.npz")],
+             JAX_APPS_ALIGN_AFTER),
+            ("align_synthetic", [], JAX_APPS_ALIGN_SYNTHETIC_AFTER)):
+        res, c, sec = _run_cli("align_submaps", atlas_args + [
+            "--method", "miso", "--use_sdf", "--save_dir", os.path.join(APPS_DIR, name)],
+            counters)
+        after = (res["rot_rmse_deg_after"], res["trans_rmse_m_after"])
+        met = after[0] < third[0] and after[1] < third[1]
+        report[name] = dict(results=res, launches=c, seconds=sec, under_a_third=met)
+        log(f"  (c) align_submaps {' '.join(atlas_args) or '(synthetic atlas)'} --method miso "
+            f"--use_sdf: {res['rot_rmse_deg_before']:.4f} deg / "
+            f"{100 * res['trans_rmse_m_before']:.3f} cm -> {after[0]:.4f} deg / "
+            f"{100 * after[1]:.3f} cm in {sec:.2f} s ({card}; the JAX package's CPU run "
+            f"{jax_after[0]:.4f} deg / {100 * jax_after[1]:.3f} cm); "
+            f"{'' if met else 'not '}under a third of the perturbation; launches {c}")
+        check(c["interp_slot"] > 0 and c["interp_slot_points_grad"] > 0 and c["decode"] > 0,
+              f"{name}: kernels not launched ({c})")
+        check(_finite(res), f"{name}: a non-finite reading")
+        if atlas_args:
+            for what, got, want in zip(("rotation", "translation"), after, jax_after):
+                check(abs(got - want) <= APPS_ALIGN_ATLAS_MARGIN * want,
+                      f"{name} --atlas: {what} RMSE {got:.4f} not within "
+                      f"{APPS_ALIGN_ATLAS_MARGIN:.0%} of the JAX CPU run's {want:.4f}")
+        else:
+            check(met, f"{name}: left {after[0]:.4f} deg / {after[1]:.4f} m, not under a "
+                  "third of the perturbation")
+
+    constants = [("full_slam_scannet", "PRETRAIN_EPOCHS", APPS_SMALL_PRETRAIN),
+                 ("full_slam_newer_college", "ENCODER_EPOCHS", APPS_SMALL_ENCODER)]
+    kernels = {"full_slam_scannet": ("interp", "interp_grad", "decode"),
+               "full_slam_newer_college": ("interp", "interp_grad", "interp_points_grad",
+                                           "interp_slot", "interp_slot_points_grad", "decode"),
+               "encoder_init": ("interp", "interp_grad", "decode")}
+    for name, argv in APPS_SMALL_ARGS.items():
+        res, c, sec = _run_cli(name, argv + ["--save_dir", os.path.join(APPS_DIR, name)],
+                               counters, constants)
+        report[name] = dict(results=res, launches=c, seconds=sec)
+        if name == "encoder_init":
+            reading = {k: v["mae_by_epoch"] for k, v in res.items()}
+        else:
+            reading = res["ate"]["ate_rmse"]
+        log(f"  (c) {name} {' '.join(argv)}: {sec:.2f} s ({card}); "
+            f"{'MAE' if name == 'encoder_init' else 'ATE'} {reading}; launches {c}")
+        check(_finite(res), f"{name}: a non-finite reading in its results")
+        missing = [k for k in kernels[name] if c[k] == 0]
+        check(not missing, f"{name}: {missing} not launched")
+    return report
+
+
+def apps_live_system(counters, card):
+    """Phase 10 (d)'s live view, on bf16 storage: phase 5's configuration
+    with grid.feature_dtype bfloat16 and 4 keyframes a submap over 8 frames
+    (two submaps), the Visualizer's live view on an ephemeral port and a bf16
+    mesh every 4 frames; /state.json read back during the run; then the two
+    submaps aligned (latent level 1, then the SDF, 10 iterations each)
+    through the slot-id kernels on the bf16 storage, and the field meshed (as
+    the Visualizer meshes it: a run of 8 frames leaves the stability under
+    the observed query's 0.2).  Gates: the state has every frame, both submaps and their boxes;
+    the storage stays bf16; every kernel of tracking, mapping, alignment and
+    meshing launched."""
+    import urllib.request
+    from miso_tpu_torch.align.miso import align_multiple_submaps_hierarchical
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.slam.system import System
+    from miso_tpu_torch.utils.sdf import save_mesh
+    dev = torch.device("cuda")
+    frames = 8
+    cfg = slam_config()
+    cfg["model"]["grid"]["feature_dtype"] = "bfloat16"
+    cfg["system"].update({"submap_size": 4, "log_dir": os.path.join(APPS_DIR, "live")})
+    cfg["visualizer"] = {"enable": True, "live": True, "live_port": 0, "mesh_vis_freq": 4,
+                         "mesh_resolution": 96}
+    mesh, ds = slam_sequence(frames)
+    decoder = pretrain_decoder(mesh, cfg["model"], dev, epochs=APPS_SMALL_PRETRAIN)
+    cfg["model"]["decoder"]["fix"] = True
+    atlas = GridAtlas(cfg["model"], max_kfs_per_submap=4,
+                      capacity=cfg["system"].get("submap_capacity"), device=dev)
+    atlas.set_decoder(decoder, fixed=True)
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    system = System(atlas, ds, ds, cfg, *ds.noisy_kf_pose_in_world(0), verbose=False)
+    vis = system.visualizer
+    try:
+        while atlas.num_keyframes < frames:
+            system.step()
+        with urllib.request.urlopen(f"http://127.0.0.1:{vis.live.port}/state.json",
+                                    timeout=10) as r:
+            state = json.loads(r.read())
+    finally:
+        vis.quit()
+    system.ensure_full_sync()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    c_run = _read_counts(counters)
+    check(state.get("frame") == frames and state.get("num_submaps") == 2
+          and len(state.get("submap_boxes", [])) == 2 and len(state.get("traj_est", [])) == frames
+          and "mesh_edges" in state,
+          f"live view state: frame {state.get('frame')}, submaps {state.get('num_submaps')}")
+    check(all(f.dtype == torch.bfloat16 for f in atlas.params.features + atlas.params.stability),
+          "the SLAM run left bf16 storage")
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    align_multiple_submaps_hierarchical(atlas, level_iters=10, finetune_iters=10, lr=2e-3,
+                                        align_loss="L2", latent_levels=[1], seed=0)
+    torch.cuda.synchronize()
+    align_s = time.perf_counter() - t0
+    c_align = _read_counts(counters)
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    m = save_mesh(atlas.params, atlas.global_bound(), None, resolution=128)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    c_mesh = _read_counts(counters)
+    log(f"  (d) live view over a bf16 System run: {frames} frames, 2 submaps in {run_s:.2f} s "
+        f"({card}); /state.json: frame {state['frame']}, {len(state['traj_est'])} keyframes, "
+        f"{len(state['submap_boxes'])} boxes, {len(state['mesh_edges'])} mesh edges; launches "
+        f"{c_run}; alignment {align_s:.2f} s, launches {c_align}; mesh 128^3 "
+        f"{mesh_s:.2f} s, {len(m.vertices)} vertices, launches {c_mesh}")
+    for what, c, names in (("SLAM", c_run, ("interp", "interp_grad", "decode")),
+                           ("alignment", c_align, ("interp_slot", "interp_slot_points_grad")),
+                           ("mesh", c_mesh, ("interp", "decode"))):
+        missing = [k for k in names if c[k] == 0]
+        check(not missing, f"bf16 {what}: {missing} not launched")
+    check(len(m.vertices) > 0, "the bf16 atlas's mesh is empty")
+    return dict(frames=frames, run_s=run_s, align_s=align_s, mesh_s=mesh_s,
+                launches=[c_run, c_align, c_mesh], state_keys=sorted(state))
+
+
+def phase_apps(card):
+    """Phase 10 (b)-(d) but phase 6's bf16 mesh: bf16 training, the demo CLIs
+    and a live view over a bf16 SLAM run."""
+    counters = kernel_counters()
+    os.makedirs(APPS_DIR, exist_ok=True)
+    training = apps_bf16_training(counters)
+    clis = apps_clis(counters, card)
+    live = apps_live_system(counters, card)
+    launches = [training["launches"], *(v["launches"] for v in clis.values()),
+                *live["launches"]]
+    return dict(training=training, clis=clis, live=live, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
@@ -3841,15 +4582,22 @@ def main() -> int:
     alt_report = phase_alt(card)
     alt_report["seconds"] = time.perf_counter() - t0
 
-    log("phase 10: report")
-    print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": errs,
+    log("phase 10: bf16 feature storage and the apps")
+    t0 = time.perf_counter()
+    bf16_errs, bf16_times = phase_bf16_kernels()
+    apps_report = phase_apps(card)
+    apps_report["seconds"] = time.perf_counter() - t0
+    apps_report["kernel_times"] = bf16_times
+
+    log("report")
+    print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": {**errs, **bf16_errs},
                       "fused_kernel": times, "interp_kernels": interp_times,
                       "decode_kernel": decode_t, "atlas_query": atlas_times,
                       "slot_kernels": slot_times, "main_path": main_report,
                       "main_path_fused": fused_report, "mesh_path": mesh_report,
                       "slam_path": slam_report, "quad_path": quad_report,
                       "align_path": align_report, "encode_path": encode_report,
-                      "alt_models": alt_report}), flush=True)
+                      "alt_models": alt_report, "bf16_and_apps": apps_report}), flush=True)
 
     online, quad = slam_report["online"], quad_report
     path_launches = [main_report["launches"], mesh_report["train_launches"],
@@ -3858,9 +4606,11 @@ def main() -> int:
                      slam_report["lm"]["launches"], quad["launches"],
                      quad["fusion"]["align_launches"], quad["fusion"]["fuse_launches"],
                      quad["consolidation"]["launches"], quad["mesh"]["launches"],
+                     quad["mesh_bf16"]["launches"],
                      align_report["launches"],
                      *(r["launches"] for r in align_report["baselines"].values()),
-                     *encode_report["launches"], *alt_report["launches"]]
+                     *encode_report["launches"], *alt_report["launches"],
+                     *apps_report["launches"]]
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
@@ -3868,7 +4618,9 @@ def main() -> int:
         run, refinement, observed mesh and LM run, phase 6's online run,
         alignment, fuse, consolidation and fused mesh, phase 7's alignment,
         phase 8's encoder pretraining, one-shot prediction, optimize runs,
-        in-system runs and quad run, and phase 9's training and lattices."""
+        in-system runs and quad run, phase 9's training and lattices, and
+        phase 10's: bf16 training, the demo CLIs, the bf16 SLAM run with its
+        live view, alignment and mesh, and phase 6's bf16 fused mesh."""
         return sum(c[name] for c in path_launches)
 
     def entry(name, source, replaces, launches, err, t):
@@ -3877,10 +4629,20 @@ def main() -> int:
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t.get("library_ms")}
 
-    def worst(*prefixes):
+    def worst(*prefixes, bf16=()):
         """The largest error of a kernel's checks at its paths' shapes: the
-        ScanNet widths of phase 2 and the mesh path's own of phase 4."""
-        return max(v for k, v in errs.items() if k.startswith(prefixes))
+        ScanNet widths of phase 2 and the mesh path's own of phase 4, and its
+        bf16 checks of phase 10 (``bf16``: their prefixes; a bf16 table's
+        gradient counts its excess over half a bf16 step)."""
+        return max([v for k, v in errs.items() if k.startswith(prefixes)]
+                   + [v for k, v in bf16_errs.items() if k.startswith(prefixes + bf16)])
+
+    def bf16_entry(t):
+        """A bf16 time record of phase 10 (a) in the kernels line's keys."""
+        return {"ms": t["bf16_ms"], "device_ms": t["bf16_device_ms"],
+                "f32_ms": t.get("f32_ms"), "f32_device_ms": t["f32_device_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t.get("library_ms")}
 
     fine, coarse = interp_times["scannet_fine"], interp_times["scannet_coarse"]
     # The grad kernel's entry: the fine level's table-only call; beside it the
@@ -3889,12 +4651,15 @@ def main() -> int:
     backward = entry("grid_interp_backward", "miso_tpu_torch/csrc/grid_interp.cu",
                      "miso_tpu/ops/pallas_interp.py:268", launches("interp_grad"),
                      worst("interp_grad_fine_F4", "interp_grad_coarse_F4", "mesh_grad_",
-                           "slam_grad_"),
+                           "slam_grad_", bf16=("interp_grad_",)),
                      fine["grad"])
     backward.update(points_grad_ms=fine["grad_x"]["ms"],
                     points_grad_bound_ms=fine["grad_x"]["bound_ms"],
                     coarse_ms=coarse["grad"]["ms"], coarse_bound_ms=coarse["grad"]["bound_ms"],
-                    coarse_copies=coarse["copies"])
+                    coarse_copies=coarse["copies"],
+                    bf16_fine=bf16_entry(bf16_times["scannet_fine"]["grad"]),
+                    bf16_fine_with_points=bf16_entry(bf16_times["scannet_fine"]["grad_x"]),
+                    bf16_coarse=bf16_entry(bf16_times["scannet_coarse"]["grad"]))
     # The fused kernel's entry: its call at the ScanNet widths, bound by its
     # 3xTF32 operations; beside it the FP32 bound, the kernel's device time,
     # the sum of the parts it fuses in the same call and which levels it
@@ -3903,12 +4668,19 @@ def main() -> int:
     fused = entry("fused_interp_decode", "miso_tpu_torch/csrc/fused_interp_decode.cu",
                   "miso_tpu/ops/pallas_decode.py:186", fused_report["launches"]["fused"],
                   worst("fused_"), times)
+    fb = bf16_times["fused_scannet"]
     fused.update(bound_note="3xTF32 tensor-core operations", fp32_bound_ms=times["fp32_bound_ms"],
                  device_ms=times["device_ms"], parts_sum_ms=times["parts_sum_ms"],
-                 levels_staged=times["levels_staged"])
+                 levels_staged=times["levels_staged"],
+                 bf16={"ms": fb["bf16_ms"], "device_ms": fb["bf16_device_ms"],
+                       "f32_ms": fb["f32_ms"], "f32_device_ms": fb["f32_device_ms"],
+                       "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+                       "bound_by": fb["bound_by"], "levels_staged": fb["levels_staged"],
+                       "library_ms": None})
     forward = entry("grid_interp_forward", "miso_tpu_torch/csrc/grid_interp.cu",
                     "miso_tpu/ops/pallas_interp.py:196", launches("interp"),
-                    worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_", "slam_interp_"),
+                    worst("interp_fine_F4", "interp_coarse_F4", "mesh_interp_", "slam_interp_",
+                          bf16=("interp_fine", "interp_coarse", "interp_mesh", "interp_budget")),
                     fine["fwd"])
     lattice = mesh_report["lattice_interp_fwd"]
     forward.update(path=fine["fwd_path"], device_ms=fine["fwd"]["device_ms"],
@@ -3916,7 +4688,11 @@ def main() -> int:
                    coarse_device_ms=coarse["fwd"]["device_ms"],
                    coarse_bound_ms=coarse["fwd"]["bound_ms"],
                    lattice_device_ms={k: v["device_ms"] for k, v in lattice.items()},
-                   lattice_paths={k: v["path"] for k, v in lattice.items()})
+                   lattice_paths={k: v["path"] for k, v in lattice.items()},
+                   bf16_fine=dict(bf16_entry(bf16_times["scannet_fine"]["fwd"]),
+                                  path=bf16_times["scannet_fine"]["fwd_path_bf16"]),
+                   bf16_coarse=dict(bf16_entry(bf16_times["scannet_coarse"]["fwd"]),
+                                    path=bf16_times["scannet_coarse"]["fwd_path_bf16"]))
     # The points-only mode's entry: its call at the LM run's 4096 points on
     # the fine level of the tracker's grid; beside it the coarse level's and
     # the ScanNet levels' at 1e6 points.
@@ -3932,7 +4708,9 @@ def main() -> int:
                        scannet_1e6={k: {f: po[k][f] for f in (
                            "ms", "device_ms", "table_and_points_ms",
                            "table_and_points_device_ms", "plain_ms", "library_ms", "bound_ms")}
-                                    for k in ("scannet_fine", "scannet_coarse")})
+                                    for k in ("scannet_fine", "scannet_coarse")},
+                       bf16_scannet_1e6={k: bf16_entry(bf16_times[k]["points_only"])
+                                         for k in ("scannet_fine", "scannet_coarse")})
     # The slot-id mode's entries: the forward and the points-only backward at
     # phase 6's alignment shape (its fine level, 8192 points a pair); beside
     # them the align phase's fine level at its 38,400 points.
@@ -3940,10 +4718,13 @@ def main() -> int:
     slot_fwd = entry("grid_interp_slot_forward", "miso_tpu_torch/csrc/grid_interp.cu",
                      "miso_tpu/ops/pallas_interp.py:196", launches("interp_slot"),
                      worst("slot_quad", "slot_align", "slot_mixed", "align_slot"), qf["fwd"])
+    qb = bf16_times["slot_quad_fine_F4"]
     slot_fwd.update(mode="slot-id (grid_interpolate_per_point_cuda)", points=qf["points"],
                     device_ms=qf["fwd"]["device_ms"],
                     align_fine={k: af["fwd"][k] for k in ("ms", "device_ms", "plain_ms",
-                                                          "bound_ms")})
+                                                          "bound_ms")},
+                    bf16={k: qb["fwd"][k] for k in ("bf16_ms", "bf16_device_ms", "f32_device_ms",
+                                                    "plain_ms", "bound_ms")})
     slot_po = entry("grid_interp_slot_points_backward", "miso_tpu_torch/csrc/grid_interp.cu",
                     "miso_tpu/ops/pallas_interp.py:268", launches("interp_slot_points_grad"),
                     worst("slot_points_only_", "slot_grad_"), qf["points_only"])
@@ -3951,7 +4732,10 @@ def main() -> int:
                    points=qf["points"], device_ms=qf["points_only"]["device_ms"],
                    table_and_points_ms=qf["table_and_points_ms"],
                    align_fine={k: af["points_only"][k] for k in ("ms", "device_ms", "plain_ms",
-                                                                 "bound_ms")})
+                                                                 "bound_ms")},
+                   bf16={k: qb["points_only"][k] for k in ("bf16_ms", "bf16_device_ms",
+                                                           "f32_device_ms", "plain_ms",
+                                                           "bound_ms")})
     kernels = [fused, forward, backward, points_only, slot_fwd, slot_po,
                entry("mlp_decode", "miso_tpu_torch/csrc/mlp_decode.cu",
                      "miso_tpu/ops/pallas_decode.py:107", launches("decode"),

@@ -30,6 +30,12 @@
 //     mtt_mma_load_rows produces from device memory), run every layer
 //     (mtt_mma_run) and write their output rows once (mtt_mma_store_rows).
 //
+// bf16 tables (grid.feature_dtype: bfloat16): every level's table may be
+// __nv_bfloat16 (MttFusedArgs::bf16; all levels of one type, the wrapper raises
+// on a mix), staged as bf16 in half the shared memory and widened to float32
+// as each row is read (mtt_grid.cuh), so the features, the MLP and the output
+// stay float32, as the JAX fused op promotes its bf16 gathers.
+//
 // Widths, level count, F and out_dim are run-time values up to the
 // compile-time maxima of mtt_mma.cuh; the Python wrapper (ops/fused_decode.py)
 // validates them, lays out shared memory (fused_layout) and mirrors the
@@ -39,11 +45,11 @@
 #include "mtt_mma.cuh"
 
 struct MttLevel {
-  const float* grid;     // (dims[0], dims[1], dims[2], fdim), row-major
+  const void* grid;      // (dims[0], dims[1], dims[2], fdim), row-major, float or bf16
   const int32_t* size;   // (3,) logical size on the device, or null
   int dims[3];           // static storage shape (sets the strides)
   int staged;            // 1: copied to shared memory at soff
-  int soff;              // floats from the start of shared memory
+  int soff;              // 4-byte words from the start of shared memory
 };
 
 struct MttFusedArgs {
@@ -54,12 +60,14 @@ struct MttFusedArgs {
   long long n;
   int n_levels;
   int fdim;
-  int vec4;              // rows as float4: fdim % 4 == 0, every table 16-byte aligned
+  int vec4;              // rows read 4 elements at a time: fdim % 4 == 0, every
+                         // table aligned to 4 elements
   int rows_per_warp;     // 16 * MT of the kernel the widest layer selects
   int slice_off;         // floats: the 4 warps' feature slices, after the weights
   int smem_bytes;        // weights, slices and staged tables
   MttLevel levels[MTT_MAX_LEVELS];
   MttMmaMlp mlp;
+  int bf16;              // 1: every level's table of __nv_bfloat16
 };
 
 // Writes one level's features into the warp's slice, scaled.
@@ -77,8 +85,9 @@ struct MttSliceSink {
 };
 
 // __grid_constant__ lets the per-level and per-layer tables be indexed at run
-// time straight from parameter space, without a per-thread local copy.
-template <int NT, int MT>
+// time straight from parameter space, without a per-thread local copy.  T: the
+// tables' element type.
+template <int NT, int MT, typename T>
 __global__ void __launch_bounds__(MTT_MMA_THREADS, MTT_MMA_MIN_BLOCKS)
 fused_interp_decode_kernel(const __grid_constant__ MttFusedArgs a) {
   extern __shared__ float4 smem4[];
@@ -89,7 +98,7 @@ fused_interp_decode_kernel(const __grid_constant__ MttFusedArgs a) {
   for (int l = 0; l < a.n_levels; ++l) {
     const MttLevel& lv = a.levels[l];
     if (lv.staged) {
-      mtt_stage_table(lv.grid, smem + lv.soff,
+      mtt_stage_table(static_cast<const T*>(lv.grid), reinterpret_cast<T*>(smem + lv.soff),
                       (long long)lv.dims[0] * lv.dims[1] * lv.dims[2] * F, tid,
                       MTT_MMA_THREADS);
     }
@@ -132,9 +141,9 @@ fused_interp_decode_kernel(const __grid_constant__ MttFusedArgs a) {
           MttSliceSink sink{slice + (l * F) * S + lane, S,
                             a.ignore != nullptr ? 1.f - __ldg(a.ignore + l) : 1.f};
           if (lv.staged) {
-            mtt_lerp<true>(smem + lv.soff, lin, w, F, vec4, sink);
+            mtt_lerp<true>(reinterpret_cast<const T*>(smem + lv.soff), lin, w, F, vec4, sink);
           } else {
-            mtt_lerp<false>(lv.grid, lin, w, F, vec4, sink);
+            mtt_lerp<false>(static_cast<const T*>(lv.grid), lin, w, F, vec4, sink);
           }
         }
       } else {
@@ -175,15 +184,21 @@ static int mtt_fused_rows_per_warp(const MttMmaMlp& m) {
   return mtt_mma_tiles(widest) <= 8 ? 32 : 16;
 }
 
+template <typename T>
 static MttFusedKernel mtt_fused_kernel_for(const MttMmaMlp& m) {
   int widest = 0;
   for (int l = 0; l <= m.n_layers; ++l) widest = m.dims[l] > widest ? m.dims[l] : widest;
   const int t = mtt_mma_tiles(widest);
-  if (t <= 1) return fused_interp_decode_kernel<1, 2>;
-  if (t <= 2) return fused_interp_decode_kernel<2, 2>;
-  if (t <= 4) return fused_interp_decode_kernel<4, 2>;
-  if (t <= 8) return fused_interp_decode_kernel<8, 2>;
-  return fused_interp_decode_kernel<16, 1>;
+  if (t <= 1) return fused_interp_decode_kernel<1, 2, T>;
+  if (t <= 2) return fused_interp_decode_kernel<2, 2, T>;
+  if (t <= 4) return fused_interp_decode_kernel<4, 2, T>;
+  if (t <= 8) return fused_interp_decode_kernel<8, 2, T>;
+  return fused_interp_decode_kernel<16, 1, T>;
+}
+
+static MttFusedKernel mtt_fused_kernel_for(const MttFusedArgs& a) {
+  return a.bf16 ? mtt_fused_kernel_for<__nv_bfloat16>(a.mlp)
+                : mtt_fused_kernel_for<float>(a.mlp);
 }
 
 // Host: 0 when the arguments are the layout ops/fused_decode.py::fused_layout
@@ -206,7 +221,9 @@ static int mtt_fused_check(const MttFusedArgs& a) {
     if (lv.dims[0] < 1 || lv.dims[1] < 1 || lv.dims[2] < 1) return (int)cudaErrorInvalidValue;
     if (!lv.staged) continue;
     if (lv.soff != off) return (int)cudaErrorInvalidValue;
-    off += ((long long)lv.dims[0] * lv.dims[1] * lv.dims[2] * a.fdim + 3) / 4 * 4;
+    const long long bytes = (long long)lv.dims[0] * lv.dims[1] * lv.dims[2] * a.fdim *
+                            (a.bf16 ? 2 : 4);
+    off += (bytes + 15) / 16 * 4;
   }
   if (a.smem_bytes != off * 4) return (int)cudaErrorInvalidValue;
   return 0;
@@ -220,7 +237,7 @@ int mtt_fused_interp_decode(const MttFusedArgs* args, int device, void* stream) 
   const MttFusedArgs& a = *args;
   const int bad = mtt_fused_check(a);
   if (bad != 0) return bad;
-  return mtt_mma_launch(mtt_fused_kernel_for(a.mlp), a, a.n, a.rows_per_warp, a.smem_bytes,
+  return mtt_mma_launch(mtt_fused_kernel_for(a), a, a.n, a.rows_per_warp, a.smem_bytes,
                         device, stream);
 }
 
@@ -232,7 +249,7 @@ int mtt_fused_interp_decode_occupancy(const MttFusedArgs* args, int device, int*
   if (bad != 0) return bad;
   out3[1] = MTT_MMA_THREADS;
   out3[2] = a.rows_per_warp;
-  return (int)mtt_mma_occupancy(mtt_fused_kernel_for(a.mlp), a.smem_bytes, device, &out3[0]);
+  return (int)mtt_mma_occupancy(mtt_fused_kernel_for(a), a.smem_bytes, device, &out3[0]);
 }
 
 }  // extern "C"

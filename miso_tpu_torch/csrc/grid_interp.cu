@@ -32,8 +32,9 @@
 //     shared memory once, then walking the points grid-stride;
 //   * such a call with a larger table at F = 4 (the fine ScanNet level,
 //     4.6 MB): a first kernel copies the table in pairs along axis 2, so that
-//     a point's 4 pairs are 4 aligned 32-byte reads, 4 sectors; the copy,
-//     9.2 MB written, is repaid at 1e6 points;
+//     a point's 4 pairs are 4 aligned 32-byte reads, 4 sectors (a bf16
+//     table's, 16-byte reads); the copy, 9.2 MB written (4.6 MB in bf16), is
+//     repaid at 1e6 points;
 //   * every other call (the mesh path's 2^15-point batches and 2^18-point
 //     lattice chunks, where a copy is not repaid, and wider rows, where a
 //     pair spans several sectors anyway): one thread per point, from the
@@ -87,6 +88,20 @@
 // (12 B), its id (4 B) and its output (4F B), or for the backward the
 // cotangent in place of the output and 12 B of points' gradient out.
 //
+// bf16 tables (grid.feature_dtype: bfloat16): every mode takes a table of
+// __nv_bfloat16 elements (MttInterpArgs::bf16) as well as float.  Rows are read
+// as stored and widened to float32 (mtt_grid.cuh), so the output, the points'
+// gradient and every sum stay float32; the points and the cotangent are
+// float32 whatever the table.  The backward accumulates the table's gradient
+// in float32, in its L2-resident copies (at least one, MttGradPlan::partial,
+// for a bf16 table), and the summing pass rounds it once into the bf16
+// gradient: the function's gradient rounded to the table's type, not the JAX
+// package's scatter-add, which rounds at every add in bf16.  The paired
+// forward path pairs bf16 rows too (8 bytes each, a pair one 16-byte read):
+// on an H100 (700 W) it took 0.0365 ms at the fine ScanNet level with 1e6
+// points against 0.0446 from the unpaired bf16 table and 0.0437-0.0440 for
+// the float32 pairs, in one run of scripts/interp_fwd_variants.py (PERF.md).
+//
 // What bounds the kernels on an H100: bytes.  Per point the forward reads x
 // (12 B) and writes F floats; the backward reads x and g (12 + 4F B), writes
 // the table once and, with the points' gradient, reads it once and writes
@@ -109,29 +124,33 @@
 struct MttInterpArgs {
   const float* x;        // (n, 3) world coordinates
   const float* bound;    // (3, 2) [lo, hi] per axis
-  const float* grid;     // (dims[0], dims[1], dims[2], fdim), row-major
+  const void* grid;      // (dims[0], dims[1], dims[2], fdim), row-major, float or bf16
   const int32_t* size;   // (3,) logical size on the device, or null
   const float* g;        // backward: (n, fdim) cotangent of the output
-  float* out;            // forward: (n, fdim); backward: the grid's gradient
-                         // (zeroed by the backward's entry point)
+  void* out;             // forward: (n, fdim) float; backward: the grid's gradient,
+                         // of the grid's type (zeroed by the backward's entry point)
   float* gx;             // backward: (n, 3) points' gradient, or null
   long long n;
   int dims[3];
   int fdim;
-  int vec4;              // rows as float4: fdim % 4 == 0, 16-byte aligned
+  int vec4;              // rows read 4 elements at a time: fdim % 4 == 0, the
+                         // grid aligned to 4 elements, out and g to 16 bytes
   const int32_t* slot;   // slot-id mode: (n,) each point's slot, or null (one grid)
   long long slot_rows;   // slot-id mode: rows of one slot, dims[0] * dims[1] * dims[2]
   int slots;             // slot-id mode: S; grid is (S, dims..., fdim), bound
                          // (S, 3, 2), size (S, 3), out of the backward (S, dims..., fdim)
+  int bf16;              // 1: grid (and the backward's out) of __nv_bfloat16
 };
 
 // The backward's copies of the table (ops/tiled_interp.py::interp_grad_copies).
 struct MttGradPlan {
-  int copies;            // 1: the atomics go to the gradient itself
-  float* partial;        // copies > 1: (copies, table) scratch, zeroed here
+  int copies;            // the table's float32 copies the atomics spread over
+  float* partial;        // (copies, table) float32 scratch, zeroed here and then
+                         // summed into the gradient; null (a float table and one
+                         // copy only): the atomics go to the gradient itself
 };
 
-// Floats of the table (the stacked storage in slot-id mode).
+// Elements of the table (the stacked storage in slot-id mode).
 __host__ __device__ __forceinline__ long long mtt_table_elems(const MttInterpArgs& a) {
   const long long one = (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim;
   return a.slot != nullptr ? one * a.slots : one;
@@ -172,12 +191,12 @@ struct MttRowSink {
   }
 };
 
-template <bool STAGED, int FC>
-__device__ __forceinline__ void mtt_interp_point(const MttInterpArgs& a, const float* rows,
+template <bool STAGED, int FC, typename T>
+__device__ __forceinline__ void mtt_interp_point(const MttInterpArgs& a, const T* rows,
                                                  long long p) {
   MttAxes ax;
   const long long base = mtt_point_axes(a, p, ax);
-  MttRowSink sink{a.out + p * a.fdim};
+  MttRowSink sink{static_cast<float*>(a.out) + p * a.fdim};
   if (base < 0) {
     for (int f = 0; f < a.fdim; ++f) sink.put(f, 0.f);
     return;
@@ -189,24 +208,25 @@ __device__ __forceinline__ void mtt_interp_point(const MttInterpArgs& a, const f
 }
 
 // A table left in L2: one thread per point.  FC: F at compile time (4, the
-// paths' F, with float4 rows), or 0.
-template <int FC>
+// paths' F, with rows read 4 elements at a time), or 0.  T: the table's type.
+template <int FC, typename T>
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
 grid_interp_forward_kernel(const __grid_constant__ MttInterpArgs a) {
   const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
   if (p >= a.n) return;
-  mtt_interp_point<false, FC>(a, a.grid, p);
+  mtt_interp_point<false, FC>(a, static_cast<const T*>(a.grid), p);
 }
 
 // A staged table: each block copies it to shared memory once, then walks the
 // points grid-stride.
-template <int FC>
+template <int FC, typename T>
 __global__ void __launch_bounds__(MTT_STAGED_THREADS)
 grid_interp_forward_staged_kernel(const __grid_constant__ MttInterpArgs a) {
   extern __shared__ float4 smem4[];
-  float* table = reinterpret_cast<float*>(smem4);
-  mtt_stage_table(a.grid, table, (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim,
-                  threadIdx.x, MTT_STAGED_THREADS);
+  T* table = reinterpret_cast<T*>(smem4);
+  mtt_stage_table(static_cast<const T*>(a.grid), table,
+                  (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim, threadIdx.x,
+                  MTT_STAGED_THREADS);
   __syncthreads();
   for (long long p = (long long)blockIdx.x * MTT_STAGED_THREADS + threadIdx.x; p < a.n;
        p += (long long)gridDim.x * MTT_STAGED_THREADS) {
@@ -217,23 +237,57 @@ grid_interp_forward_staged_kernel(const __grid_constant__ MttInterpArgs a) {
 // A table left in L2, read in pairs (F = 4): row r of the copy holds storage
 // rows r and r + 1 along axis 2 (r again where r + 1 passes the last row a
 // corner can index there, as a corner clips), so the two corners of a pair
-// are one aligned 32-byte read, one L2 sector, where the table itself gives
-// 1.5 on average.  The copy is made by a first kernel on every call.
+// are one aligned read, one L2 sector (32 bytes of float, 16 of bf16), where
+// the table itself gives 1.5 on average.  The copy is made by a first kernel
+// on every call.  mtt_pair_pack writes pair r from rows r and r1;
+// mtt_pair_load reads pair `row` as two float4 rows (the tag's type is the
+// table's).
+__device__ __forceinline__ void mtt_pair_pack(const float* grid, long long r, long long r1,
+                                              void* pairs) {
+  const float4* g4 = reinterpret_cast<const float4*>(grid);
+  float4* p4 = static_cast<float4*>(pairs);
+  p4[2 * r] = __ldg(g4 + r);
+  p4[2 * r + 1] = __ldg(g4 + r1);
+}
+
+__device__ __forceinline__ void mtt_pair_pack(const __nv_bfloat16* grid, long long r,
+                                              long long r1, void* pairs) {
+  const uint2* g2 = reinterpret_cast<const uint2*>(grid);
+  const uint2 lo = __ldg(g2 + r), hi = __ldg(g2 + r1);
+  static_cast<uint4*>(pairs)[r] = make_uint4(lo.x, lo.y, hi.x, hi.y);
+}
+
+__device__ __forceinline__ void mtt_pair_load(const float*, const void* pairs, long long row,
+                                              float4& v0, float4& v1) {
+  const float4* p4 = static_cast<const float4*>(pairs);
+  v0 = __ldg(p4 + 2 * row);
+  v1 = __ldg(p4 + 2 * row + 1);
+}
+
+__device__ __forceinline__ void mtt_pair_load(const __nv_bfloat16*, const void* pairs,
+                                              long long row, float4& v0, float4& v1) {
+  const uint4 q = __ldg(static_cast<const uint4*>(pairs) + row);
+  v0 = make_float4(mtt_widen(q.x & 0xffffu), __uint_as_float(q.x & 0xffff0000u),
+                   mtt_widen(q.y & 0xffffu), __uint_as_float(q.y & 0xffff0000u));
+  v1 = make_float4(mtt_widen(q.z & 0xffffu), __uint_as_float(q.z & 0xffff0000u),
+                   mtt_widen(q.w & 0xffffu), __uint_as_float(q.w & 0xffff0000u));
+}
+
+template <typename T>
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
-grid_interp_pair_pack_kernel(const __grid_constant__ MttInterpArgs a, float4* __restrict__ pairs) {
+grid_interp_pair_pack_kernel(const __grid_constant__ MttInterpArgs a, void* __restrict__ pairs) {
   const long long r = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
   const long long rows = (long long)a.dims[0] * a.dims[1] * a.dims[2];
   if (r >= rows) return;
   const int z = (int)(r % a.dims[2]);
   const int z_hi = min(a.size != nullptr ? a.size[2] : a.dims[2], a.dims[2]) - 1;
-  const float4* g4 = reinterpret_cast<const float4*>(a.grid);
-  pairs[2 * r] = __ldg(g4 + r);
-  pairs[2 * r + 1] = __ldg(g4 + (z < z_hi ? r + 1 : r));
+  mtt_pair_pack(static_cast<const T*>(a.grid), r, z < z_hi ? r + 1 : r, pairs);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
 grid_interp_forward_pairs_kernel(const __grid_constant__ MttInterpArgs a,
-                                 const float4* __restrict__ pairs) {
+                                 const void* __restrict__ pairs) {
   const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
   if (p >= a.n) return;
   MttAxes ax;
@@ -261,8 +315,7 @@ grid_interp_forward_pairs_kernel(const __grid_constant__ MttInterpArgs a,
       wc *= bit ? ax.fr[k] : 1.f - ax.fr[k];
     }
     const long long row = ((long long)ic[0] * a.dims[1] + ic[1]) * a.dims[2] + zp;
-    v[2 * c] = __ldg(pairs + 2 * row);
-    v[2 * c + 1] = __ldg(pairs + 2 * row + 1);
+    mtt_pair_load(static_cast<const T*>(nullptr), pairs, row, v[2 * c], v[2 * c + 1]);
     wxy[c] = ok ? wc : 0.f;
   }
   float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -274,7 +327,7 @@ grid_interp_forward_pairs_kernel(const __grid_constant__ MttInterpArgs a,
     acc.z = fmaf(w1, v[2 * c + 1].z, fmaf(w0, v[2 * c].z, acc.z));
     acc.w = fmaf(w1, v[2 * c + 1].w, fmaf(w0, v[2 * c].w, acc.w));
   }
-  reinterpret_cast<float4*>(a.out)[p] = acc;
+  static_cast<float4*>(a.out)[p] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -294,7 +347,8 @@ __device__ __forceinline__ void mtt_atomic_add4(float* dst, float4 v) {
 
 // d out / d x of one point: <g, row_c> of each valid corner through the
 // weights' derivatives.
-__device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const float* rows,
+template <typename T>
+__device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const T* rows,
                                                 const MttAxes& ax, unsigned valid,
                                                 const int lin[8], const float* gp, float* gxp) {
   const int F = a.fdim;
@@ -307,8 +361,7 @@ __device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const fl
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         if (!((valid >> c) & 1u)) continue;
-        const float4 r =
-            __ldg(reinterpret_cast<const float4*>(rows + (long long)lin[c] * F + f));
+        const float4 r = mtt_row_load4<false>(rows + (long long)lin[c] * F + f);
         dot[c] = fmaf(gv.x, r.x, fmaf(gv.y, r.y, fmaf(gv.z, r.z, fmaf(gv.w, r.w, dot[c]))));
       }
     }
@@ -317,7 +370,9 @@ __device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const fl
       const float gf = __ldg(gp + f);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
-        if ((valid >> c) & 1u) dot[c] = fmaf(gf, __ldg(rows + (long long)lin[c] * F + f), dot[c]);
+        if ((valid >> c) & 1u) {
+          dot[c] = fmaf(gf, mtt_row_load<false>(rows + (long long)lin[c] * F + f), dot[c]);
+        }
       }
     }
   }
@@ -332,6 +387,7 @@ __device__ __forceinline__ void mtt_points_grad(const MttInterpArgs& a, const fl
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
 grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
                             const __grid_constant__ MttGradPlan pl) {
@@ -348,8 +404,9 @@ grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
   const unsigned valid = mtt_corners(ax, a.dims, lin, w);
   const int F = a.fdim;
   const float* gp = a.g + p * F;
-  float* table = a.out;
-  if (pl.copies > 1) table = pl.partial + (long long)(blockIdx.x % pl.copies) * mtt_table_elems(a);
+  float* table = pl.partial != nullptr
+                     ? pl.partial + (long long)(blockIdx.x % pl.copies) * mtt_table_elems(a)
+                     : static_cast<float*>(a.out);
   table += base * F;
   // The grid's gradient.  An invalid corner adds nothing (its weight is 0).
 #pragma unroll
@@ -366,9 +423,13 @@ grid_interp_backward_kernel(const __grid_constant__ MttInterpArgs a,
       for (int f = 0; f < F; ++f) atomicAdd(dst + f, w[c] * __ldg(gp + f));
     }
   }
-  if (a.gx != nullptr) mtt_points_grad(a, a.grid + base * F, ax, valid, lin, gp, a.gx + 3 * p);
+  if (a.gx != nullptr) {
+    mtt_points_grad(a, static_cast<const T*>(a.grid) + base * F, ax, valid, lin, gp,
+                    a.gx + 3 * p);
+  }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(MTT_INTERP_THREADS)
 grid_interp_points_grad_kernel(const __grid_constant__ MttInterpArgs a) {
   const long long p = (long long)blockIdx.x * MTT_INTERP_THREADS + threadIdx.x;
@@ -382,15 +443,36 @@ grid_interp_points_grad_kernel(const __grid_constant__ MttInterpArgs a) {
   int lin[8];
   float w[8];
   const unsigned valid = mtt_corners(ax, a.dims, lin, w);
-  mtt_points_grad(a, a.grid + base * a.fdim, ax, valid, lin, a.g + p * a.fdim, a.gx + 3 * p);
+  mtt_points_grad(a, static_cast<const T*>(a.grid) + base * a.fdim, ax, valid, lin,
+                  a.g + p * a.fdim, a.gx + 3 * p);
 }
 
-// The gradient: the sum of the copies, element by element (float4 when the
-// table's length allows).
+// Store a summed gradient in the table's type: as it is, or rounded once to
+// bf16 (to nearest even).
+__device__ __forceinline__ void mtt_store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void mtt_store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void mtt_store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void mtt_store4(__nv_bfloat16* p, float4 v) {
+  uint2 w;
+  w.x = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.x)) |
+        ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.y)) << 16);
+  w.y = (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.z)) |
+        ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(v.w)) << 16);
+  *reinterpret_cast<uint2*>(p) = w;
+}
+
+// The gradient: the sum of the copies, element by element (4 at a time when
+// the table's length allows), in float32, stored in the table's type T.
+template <typename T>
 __global__ void __launch_bounds__(MTT_SUM_THREADS)
 grid_grad_sum_copies_kernel(const __grid_constant__ MttInterpArgs a,
                             const __grid_constant__ MttGradPlan pl, long long elems) {
   const long long i = (long long)blockIdx.x * MTT_SUM_THREADS + threadIdx.x;
+  T* out = static_cast<T*>(a.out);
   if (elems % 4 == 0) {
     if (4 * i >= elems) return;
     float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -401,12 +483,12 @@ grid_grad_sum_copies_kernel(const __grid_constant__ MttInterpArgs a,
       s.z += v.z;
       s.w += v.w;
     }
-    reinterpret_cast<float4*>(a.out)[i] = s;
+    mtt_store4(out + 4 * i, s);
   } else {
     if (i >= elems) return;
     float s = 0.f;
     for (int k = 0; k < pl.copies; ++k) s += __ldg(pl.partial + k * elems + i);
-    a.out[i] = s;
+    mtt_store(out + i, s);
   }
 }
 
@@ -429,28 +511,71 @@ static int mtt_interp_check(const MttInterpArgs& a) {
     if (mtt_e != cudaSuccess) return (int)mtt_e; \
   } while (0)
 
+template <typename T>
 static int mtt_grad_launch(const MttInterpArgs& a, const MttGradPlan& pl,
                            cudaStream_t s) {
   const long long elems = mtt_table_elems(a);
-  if (pl.copies < 1 || (pl.copies > 1 && pl.partial == nullptr) ||
-      (a.n > 0 && a.g == nullptr)) {
+  const bool scratch = pl.partial != nullptr;
+  if (pl.copies < 1 || (pl.copies > 1 && !scratch) || (a.bf16 && !scratch) ||
+      (a.n > 0 && a.g == nullptr) || (reinterpret_cast<uintptr_t>(a.out) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  float* zeroed = pl.copies > 1 ? pl.partial : a.out;
+  void* zeroed = scratch ? static_cast<void*>(pl.partial) : a.out;
   MTT_TRY(cudaMemsetAsync(zeroed, 0, (size_t)pl.copies * elems * sizeof(float), s));
   if (a.n > 0) {
     const long long blocks = (a.n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
     if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-    grid_interp_backward_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(a, pl);
+    grid_interp_backward_kernel<T><<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(a, pl);
     MTT_TRY(cudaGetLastError());
   }
-  if (pl.copies > 1) {
+  if (scratch) {
     const long long work = elems % 4 == 0 ? elems / 4 : elems;
-    grid_grad_sum_copies_kernel<<<(unsigned)((work + MTT_SUM_THREADS - 1) / MTT_SUM_THREADS),
-                                  MTT_SUM_THREADS, 0, s>>>(a, pl, elems);
+    grid_grad_sum_copies_kernel<T>
+        <<<(unsigned)((work + MTT_SUM_THREADS - 1) / MTT_SUM_THREADS), MTT_SUM_THREADS, 0,
+           s>>>(a, pl, elems);
     MTT_TRY(cudaGetLastError());
   }
   return 0;
+}
+
+// The forward's launches for a table of type T (see mtt_grid_interp_forward).
+template <typename T>
+static int mtt_forward_launch(const MttInterpArgs* a, int path, void* pairs, int device,
+                              cudaStream_t s) {
+  const bool f4 = a->fdim == 4 && a->vec4;
+  const long long blocks = (a->n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (path == MTT_FWD_L2) {
+    (f4 ? grid_interp_forward_kernel<4, T> : grid_interp_forward_kernel<0, T>)
+        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a);
+    return (int)cudaGetLastError();
+  }
+  const long long rows = (long long)a->dims[0] * a->dims[1] * a->dims[2];
+  if (path == MTT_FWD_PAIRS) {
+    grid_interp_pair_pack_kernel<T><<<(unsigned)((rows + MTT_INTERP_THREADS - 1) /
+                                                 MTT_INTERP_THREADS),
+                                      MTT_INTERP_THREADS, 0, s>>>(*a, pairs);
+    MTT_TRY(cudaGetLastError());
+    grid_interp_forward_pairs_kernel<T>
+        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a, pairs);
+    return (int)cudaGetLastError();
+  }
+  if (path != MTT_FWD_STAGED) return (int)cudaErrorInvalidValue;
+  void (*kernel)(const MttInterpArgs) =
+      f4 ? grid_interp_forward_staged_kernel<4, T> : grid_interp_forward_staged_kernel<0, T>;
+  const long long bytes = rows * a->fdim * (long long)sizeof(T);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  const int smem = (int)(((bytes + 15) / 16) * 16);
+  MTT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+  int sms = 0, occ = 0;
+  MTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  MTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, MTT_STAGED_THREADS,
+                                                        smem));
+  if (occ < 1) occ = 1;
+  const long long tiles = (a->n + MTT_STAGED_THREADS - 1) / MTT_STAGED_THREADS;
+  const long long wave = (long long)sms * occ;
+  kernel<<<(unsigned)(tiles < wave ? tiles : wave), MTT_STAGED_THREADS, smem, s>>>(*a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" {
@@ -467,9 +592,9 @@ extern "C" {
 // MTT_FWD_L2, one thread per point from the table; MTT_FWD_STAGED, the table
 // copied to each block's shared memory, one wave of blocks; MTT_FWD_PAIRS
 // (F = 4), the table copied
-// in pairs into `pairs` (8 * rows floats, 16-byte aligned), then one thread per
-// point.
-int mtt_grid_interp_forward(const MttInterpArgs* a, int path, float* pairs, int device,
+// in pairs into `pairs` (8 * rows elements of the table's type, 16-byte
+// aligned), then one thread per point.
+int mtt_grid_interp_forward(const MttInterpArgs* a, int path, void* pairs, int device,
                             void* stream) {
   if (a->g != nullptr || a->gx != nullptr) return (int)cudaErrorInvalidValue;
   const int bad = mtt_interp_check(*a);
@@ -481,52 +606,21 @@ int mtt_grid_interp_forward(const MttInterpArgs* a, int path, float* pairs, int 
   if (a->n == 0) return 0;
   MTT_TRY(cudaSetDevice(device));
   const cudaStream_t s = (cudaStream_t)stream;
-  const bool f4 = a->fdim == 4 && a->vec4;
-  const long long blocks = (a->n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  if (path == MTT_FWD_L2) {
-    (f4 ? grid_interp_forward_kernel<4> : grid_interp_forward_kernel<0>)
-        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a);
-    return (int)cudaGetLastError();
-  }
-  const long long rows = (long long)a->dims[0] * a->dims[1] * a->dims[2];
-  if (path == MTT_FWD_PAIRS) {
-    float4* p4 = reinterpret_cast<float4*>(pairs);
-    grid_interp_pair_pack_kernel<<<(unsigned)((rows + MTT_INTERP_THREADS - 1) /
-                                              MTT_INTERP_THREADS),
-                                   MTT_INTERP_THREADS, 0, s>>>(*a, p4);
-    MTT_TRY(cudaGetLastError());
-    grid_interp_forward_pairs_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0, s>>>(*a, p4);
-    return (int)cudaGetLastError();
-  }
-  if (path != MTT_FWD_STAGED) return (int)cudaErrorInvalidValue;
-  void (*kernel)(const MttInterpArgs) =
-      f4 ? grid_interp_forward_staged_kernel<4> : grid_interp_forward_staged_kernel<0>;
-  const long long floats = rows * a->fdim;
-  if (floats * 4 > 232448) return (int)cudaErrorInvalidValue;
-  const int smem = (int)(((floats + 3) / 4) * 16);
-  MTT_TRY(cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
-  int sms = 0, occ = 0;
-  MTT_TRY(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
-  MTT_TRY(cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kernel, MTT_STAGED_THREADS,
-                                                        smem));
-  if (occ < 1) occ = 1;
-  const long long tiles = (a->n + MTT_STAGED_THREADS - 1) / MTT_STAGED_THREADS;
-  const long long wave = (long long)sms * occ;
-  kernel<<<(unsigned)(tiles < wave ? tiles : wave), MTT_STAGED_THREADS, smem, s>>>(*a);
-  return (int)cudaGetLastError();
+  return a->bf16 ? mtt_forward_launch<__nv_bfloat16>(a, path, pairs, device, s)
+                 : mtt_forward_launch<float>(a, path, pairs, device, s);
 }
 
-// Zeroes the copies, scatters into them and, with more than one, sums them
-// into the grid's gradient (a->out): a memset and one kernel, or a memset and
-// two.  With no points a->g and a->gx may be null (an empty tensor has no
+// Zeroes the copies, scatters into them and, with scratch copies
+// (plan->partial), sums them into the grid's gradient (a->out) in the grid's
+// type: a memset and one kernel, or a memset and two.  With no points a->g and a->gx may be null (an empty tensor has no
 // storage).
 int mtt_grid_interp_backward(const MttInterpArgs* a, const MttGradPlan* plan, int device,
                              void* stream) {
   const int bad = mtt_interp_check(*a);
   if (bad != 0) return bad;
   MTT_TRY(cudaSetDevice(device));
-  return mtt_grad_launch(*a, *plan, (cudaStream_t)stream);
+  return a->bf16 ? mtt_grad_launch<__nv_bfloat16>(*a, *plan, (cudaStream_t)stream)
+                 : mtt_grad_launch<float>(*a, *plan, (cudaStream_t)stream);
 }
 
 // The points' gradient alone (a->gx), the table's not asked for: a->out must
@@ -541,8 +635,13 @@ int mtt_grid_interp_points_grad(const MttInterpArgs* a, int device, void* stream
   MTT_TRY(cudaSetDevice(device));
   const long long blocks = (a->n + MTT_INTERP_THREADS - 1) / MTT_INTERP_THREADS;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  grid_interp_points_grad_kernel<<<(unsigned)blocks, MTT_INTERP_THREADS, 0,
-                                   (cudaStream_t)stream>>>(*a);
+  if (a->bf16) {
+    grid_interp_points_grad_kernel<__nv_bfloat16>
+        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  } else {
+    grid_interp_points_grad_kernel<float>
+        <<<(unsigned)blocks, MTT_INTERP_THREADS, 0, (cudaStream_t)stream>>>(*a);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -12,6 +12,11 @@
 // The gather (mtt_lerp) reads a level's corner rows either from a copy of the
 // table staged in the block's shared memory (mtt_stage_table) or from global
 // memory through the read-only cache, where an L2-resident table is served.
+// A table's elements are float or __nv_bfloat16 (bf16 feature storage,
+// grid.feature_dtype: bfloat16).  A bf16 row is read as it is stored (at F = 4
+// one 8-byte load), widened to float32, which is exact, and lerped in float32,
+// as the JAX package gathers bf16 and promotes it against float32 weights; a
+// bf16 table is staged as bf16, in half the shared memory.
 // Which levels are staged is decided on the host
 // (ops/tiled_interp.py::staged_tables).  A staged copy covers the whole
 // storage, padded rows included: corners clip to min(n, storage) - 1, so every
@@ -19,6 +24,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,44 +103,70 @@ __device__ __forceinline__ float mtt_corner_dweight(const MttAxes& a, int c, int
   return d;
 }
 
-// Copy `floats` floats of a table to shared memory at dst (16-byte aligned),
-// coalesced: 16-byte loads when src is 16-byte aligned and floats % 4 == 0.
-// The caller synchronises the block after it.
-__device__ __forceinline__ void mtt_stage_table(const float* __restrict__ src, float* dst,
-                                                long long floats, int tid, int nthreads) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (floats & 3) == 0) {
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (long long i = tid; i < (floats >> 2); i += nthreads) d4[i] = __ldg(s4 + i);
+// Copy `elems` elements of a table to shared memory at dst (16-byte aligned),
+// coalesced: 16-byte loads when src is 16-byte aligned and the table's bytes
+// are a multiple of 16.  The caller synchronises the block after it.
+template <typename T>
+__device__ __forceinline__ void mtt_stage_table(const T* __restrict__ src, T* dst,
+                                                long long elems, int tid, int nthreads) {
+  const long long bytes = elems * (long long)sizeof(T);
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (bytes & 15) == 0) {
+    const uint4* s4 = reinterpret_cast<const uint4*>(src);
+    uint4* d4 = reinterpret_cast<uint4*>(dst);
+    for (long long i = tid; i < (bytes >> 4); i += nthreads) d4[i] = __ldg(s4 + i);
   } else {
-    for (long long i = tid; i < floats; i += nthreads) dst[i] = __ldg(src + i);
+    for (long long i = tid; i < elems; i += nthreads) dst[i] = src[i];
   }
 }
 
-// Row r's float f: 32-bit offsets into a staged copy, 64-bit into a table.
-template <bool STAGED>
-__device__ __forceinline__ const float* mtt_row(const float* rows, int r, int F, int f) {
+// A bf16 value's bits widened to float32 (exact: bf16 is float32's upper half).
+__device__ __forceinline__ float mtt_widen(unsigned int bits16) {
+  return __uint_as_float(bits16 << 16);
+}
+
+// Row r's element f: 32-bit offsets into a staged copy, 64-bit into a table.
+template <bool STAGED, typename T>
+__device__ __forceinline__ const T* mtt_row(const T* rows, int r, int F, int f) {
   return STAGED ? rows + (r * F + f) : rows + ((long long)r * F + f);
 }
 
+// One element as float32, from shared memory (STAGED) or through the
+// read-only cache.
 template <bool STAGED>
 __device__ __forceinline__ float mtt_row_load(const float* p) {
   return STAGED ? *p : __ldg(p);
 }
 
 template <bool STAGED>
+__device__ __forceinline__ float mtt_row_load(const __nv_bfloat16* p) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  return mtt_widen(STAGED ? *h : __ldg(h));
+}
+
+// Four elements as float32: one 16-byte load of float, one 8-byte load of bf16.
+template <bool STAGED>
 __device__ __forceinline__ float4 mtt_row_load4(const float* p) {
   const float4* p4 = reinterpret_cast<const float4*>(p);
   return STAGED ? *p4 : __ldg(p4);
 }
 
-// The F features of one point at one level, sum_c w[c] * rows[lin[c]], handed
-// to sink.put4(f, float4) four at a time when vec4 (F % 4 == 0 and the rows
-// 16-byte aligned), else to sink.put(f, float) one at a time.  rows is the
-// staged copy in shared memory (STAGED) or the table in global memory.  FC > 0
-// is F known at compile time (float4 rows of FC floats, vec4 taken as set).
-template <bool STAGED, int FC = 0, typename Sink>
-__device__ __forceinline__ void mtt_lerp(const float* __restrict__ rows, const int lin[8],
+template <bool STAGED>
+__device__ __forceinline__ float4 mtt_row_load4(const __nv_bfloat16* p) {
+  const uint2* p2 = reinterpret_cast<const uint2*>(p);
+  const uint2 v = STAGED ? *p2 : __ldg(p2);
+  // Little-endian: element 0 in the low half of the first word.
+  return make_float4(mtt_widen(v.x & 0xffffu), __uint_as_float(v.x & 0xffff0000u),
+                     mtt_widen(v.y & 0xffffu), __uint_as_float(v.y & 0xffff0000u));
+}
+
+// The F features of one point at one level, sum_c w[c] * rows[lin[c]] in
+// float32, handed to sink.put4(f, float4) four at a time when vec4 (F % 4 == 0
+// and the rows aligned to 4 elements), else to sink.put(f, float) one at a
+// time.  rows is the staged copy in shared memory (STAGED) or the table in
+// global memory, of float or bf16 elements (T).  FC > 0 is F known at compile
+// time (rows of FC elements read 4 at a time, vec4 taken as set).
+template <bool STAGED, int FC = 0, typename T, typename Sink>
+__device__ __forceinline__ void mtt_lerp(const T* __restrict__ rows, const int lin[8],
                                          const float w[8], int F, bool vec4, Sink& sink) {
   if (FC > 0) {
 #pragma unroll

@@ -77,7 +77,7 @@ class _FusedArgs(ctypes.Structure):
                 ("rows_per_warp", ctypes.c_int), ("slice_off", ctypes.c_int),
                 ("smem_bytes", ctypes.c_int),
                 ("levels", _Level * MAX_LEVELS),
-                ("mlp", _MmaMlp)]
+                ("mlp", _MmaMlp), ("bf16", ctypes.c_int)]
 
 
 # The MLP's fields are anonymous: ``args.woff`` reads ``args.mlp.woff``.
@@ -177,15 +177,28 @@ def _check_mlp(decoder_params, in_dim, device, bias_required, smem_bytes):
 
 
 def _check_args(grids, x, bound, decoder_params, sizes, ignore_level):
-    """Raise on anything the fused kernel does not take; returns the MLP widths."""
+    """Raise on anything the fused kernel does not take; returns the MLP widths.
+    The tables may be float32 or bfloat16, all of one dtype; every other
+    tensor is float32."""
     if x.ndim != 2 or x.shape[1] != 3:
         raise ValueError(f"the fused kernel is 3D only: x has shape {tuple(x.shape)}")
     n_levels = len(grids)
     if not 1 <= n_levels <= MAX_LEVELS:
         raise ValueError(f"{n_levels} levels; the kernel takes 1..{MAX_LEVELS}")
     fdim = grids[0].shape[-1]
+    from miso_tpu_torch.ops.tiled_interp import TABLE_DTYPES
+    if grids[0].dtype not in TABLE_DTYPES:
+        raise TypeError(f"grids[0] is {grids[0].dtype}; the kernel takes float32 or "
+                        "bfloat16 tables")
+    for l, g in enumerate(grids):
+        if g.dtype != grids[0].dtype:
+            raise TypeError(f"grids[{l}] is {g.dtype}, grids[0] {grids[0].dtype}: the "
+                            "kernel takes the levels in one dtype")
+        if g.device != x.device:
+            raise ValueError(f"grids[{l}] is on {g.device}, x on {x.device}")
+        if not g.is_contiguous():
+            raise ValueError(f"grids[{l}] is not contiguous")
     named = [("x", x), ("bound", bound)]
-    named += [(f"grids[{l}]", g) for l, g in enumerate(grids)]
     if ignore_level is not None:
         named.append(("ignore_level", ignore_level))
     _check_tensors(named, x.device)
@@ -225,7 +238,9 @@ def pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims):
     a.x, a.bound, a.out = x.data_ptr(), bound.data_ptr(), out.data_ptr()
     a.ignore = ignore_level.data_ptr() if ignore_level is not None else None
     a.n, a.n_levels, a.fdim = x.shape[0], len(grids), grids[0].shape[-1]
-    a.vec4 = int(a.fdim % 4 == 0 and all(g.data_ptr() % 16 == 0 for g in grids))
+    a.vec4 = int(a.fdim % 4 == 0 and all(g.data_ptr() % (4 * g.element_size()) == 0
+                                         for g in grids))
+    a.bf16 = int(grids[0].dtype == torch.bfloat16)
     a.rows_per_warp, a.slice_off, a.smem_bytes = (
         lay["rows_per_warp"], lay["slice_off"], lay["smem_bytes"])
     for l, g in enumerate(grids):
@@ -276,11 +291,13 @@ def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
                              sizes: Optional[Sequence[torch.Tensor]] = None,
                              ignore_level: Optional[torch.Tensor] = None
                              ) -> torch.Tensor:
-    """Launch the CUDA kernel: (N, 3) float32 points -> (N, out) float32.
+    """Launch the CUDA kernel: (N, 3) float32 points -> (N, out) float32,
+    from float32 or bfloat16 tables (each bf16 row widened as it is read).
 
-    Raises (and never falls back) on a non-CUDA tensor, d != 3, a non-f32
-    dtype, a missing bias, widths above the kernel's maxima and
-    non-contiguous inputs.  No autograd: see :func:`fused_interp_decode`.
+    Raises (and never falls back) on a non-CUDA tensor, d != 3, tables of
+    another dtype or of mixed dtypes, any other tensor not float32, a missing
+    bias, widths above the kernel's maxima and non-contiguous inputs.  No
+    autograd: see :func:`fused_interp_decode`.
     """
     dims = _check_args(grids, x, bound, decoder_params, sizes, ignore_level)
     if not x.is_cuda:
@@ -321,7 +338,10 @@ def _occupancy(lib, launcher, args, device):
 
 def fused_interp_decode_plain(grids, x, bound, decoder_params, sizes=None,
                               ignore_level=None):
-    """The kernel's plain PyTorch version: interpolate, concat, decode."""
+    """The kernel's plain PyTorch version: interpolate, concat, decode.  A
+    bf16 table's gathered rows are widened by the lerp's promotion against
+    the float32 weights: the values of ``table.float()``, with no float32
+    copy of the table (the backward's recompute runs this on the card)."""
     feats = multi_level_interpolate(grids, x, bound, ignore_level, sizes)
     return grid_decode(feats, x, decoder_params, True)
 

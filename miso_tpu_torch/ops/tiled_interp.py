@@ -55,6 +55,14 @@ and per-submap losses' query): :func:`grid_interpolate_per_point_cuda` and
 single-grid calls), their plain versions, ``_GridInterpPerPoint`` and
 :func:`grid_interpolate_per_point_dispatch`, as above.
 
+Tables may be float32 or bfloat16 (``grid.feature_dtype: bfloat16``); the
+points, the cotangent, the output and the points' gradient are float32
+whatever the table.  The kernels widen each bf16 row as they read it (no
+float32 copy of the table is made), and the table's gradient comes back in
+the table's dtype: summed in float32 and rounded once (the JAX package's
+scatter-add rounds in bf16 at every add).  The plain versions compute from
+``table.float()``.
+
 Two faults of the TPU op are not carried over: it breaks for
 F > 8 (``fpad=8``) and its backward gives zeros for the points' gradient.
 """
@@ -78,7 +86,12 @@ class _InterpArgs(ctypes.Structure):
                 ("gx", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("dims", ctypes.c_int * 3), ("fdim", ctypes.c_int),
                 ("vec4", ctypes.c_int), ("slot", ctypes.c_void_p),
-                ("slot_rows", ctypes.c_longlong), ("slots", ctypes.c_int)]
+                ("slot_rows", ctypes.c_longlong), ("slots", ctypes.c_int),
+                ("bf16", ctypes.c_int)]
+
+
+# The tables' dtypes the kernels take (csrc/mtt_grid.cuh's element types).
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
 
 
 class _GradPlanArgs(ctypes.Structure):
@@ -150,7 +163,9 @@ def interp_forward_path(grid: torch.Tensor, n: int, vec4: bool) -> str:
     copy of the table in 32-byte pairs along axis 2; else, and for every
     call of fewer than ``COPY_MIN_POINTS`` points, ``"l2"``, the table
     itself.  (A pair of wider rows spans several L2 sectors anyway: at F = 8
-    and 12 the pairs measured slower than the table.)"""
+    and 12 the pairs measured slower than the table.)  A bf16 table pairs
+    too: at the fine ScanNet level its 16-byte pairs measured 17 % faster
+    than its unpaired rows (PERF.md)."""
     if n < COPY_MIN_POINTS:
         return "l2"
     if staged_tables([table_bytes(grid)], 0, INTERP_STAGED_BLOCKS)[0]:
@@ -159,8 +174,8 @@ def interp_forward_path(grid: torch.Tensor, n: int, vec4: bool) -> str:
 
 
 def table_bytes(grid: torch.Tensor) -> int:
-    """Bytes of a level's storage, padded rows included: what a staged copy
-    holds."""
+    """Bytes of a level's storage, padded rows included, at its element size:
+    what a staged copy holds."""
     return grid.numel() * grid.element_size()
 
 
@@ -197,9 +212,8 @@ def _check(grid, x, bound, size, g=None):
             raise ValueError(f"cotangent has shape {tuple(g.shape)}, expected "
                              f"{(x.shape[0], grid.shape[-1])}")
         named.append(("cotangent", g))
+    _check_dtypes(named)
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -213,8 +227,21 @@ def _check(grid, x, bound, size, g=None):
         raise ValueError(f"the interp kernels need CUDA tensors, got {x.device}")
 
 
+def _check_dtypes(named):
+    """The table (first of ``named``) float32 or bfloat16, the rest float32."""
+    (table_name, table), rest = named[0], named[1:]
+    if table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"{table_name} is {table.dtype}; the kernels take float32 or "
+                        "bfloat16 tables")
+    for name, t in rest:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} is {t.dtype}; the kernels take it as float32 only")
+
+
 def _pack(grid, x, bound, size, out, g=None, gx=None):
-    """The kernels' arguments for one grid (X, Y, Z, F)."""
+    """The kernels' arguments for one grid (X, Y, Z, F): rows are read 4
+    elements at a time (``vec4``) where F % 4 == 0, the table is aligned to 4
+    elements and the float32 rows of ``out`` and ``g`` to 16 bytes."""
     a = _InterpArgs()
     a.x, a.bound, a.grid = x.data_ptr(), bound.data_ptr(), grid.data_ptr()
     a.out = None if out is None else out.data_ptr()
@@ -225,7 +252,9 @@ def _pack(grid, x, bound, size, out, g=None, gx=None):
     a.dims[:] = list(grid.shape[:3])
     a.fdim = grid.shape[-1]
     rows = [t for t in (grid, out, g) if t is not None]
-    a.vec4 = int(a.fdim % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in rows))
+    a.vec4 = int(a.fdim % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0
+                                         for t in rows))
+    a.bf16 = int(grid.dtype == torch.bfloat16)
     return a
 
 
@@ -256,7 +285,7 @@ def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tens
     path = interp_forward_path(grid, x.shape[0], bool(a.vec4))
     # Freed on return, while the kernels may still run: PyTorch's caching
     # allocator hands the block out again only in this stream's order.
-    pairs = torch.empty(2 * grid.numel(), dtype=torch.float32,
+    pairs = torch.empty(2 * grid.numel(), dtype=grid.dtype,
                         device=x.device) if path == "pairs" else None
     _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS[path],
             None if pairs is None else pairs.data_ptr())
@@ -267,6 +296,21 @@ def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tens
 grid_interpolate_cuda.launches = 0
 
 
+def _grad_plan(table, n_copies):
+    """The backward's ``MttGradPlan`` and the float32 scratch it points into
+    (None for a float32 table with one copy, whose atomics go to the
+    gradient itself; a bf16 table's always go to float32 scratch).  The
+    caller keeps the scratch alive until the launch is queued: freed then,
+    while the kernels may still run, PyTorch's caching allocator hands the
+    block out again only in this stream's order."""
+    plan = _GradPlanArgs(n_copies, None)
+    if n_copies == 1 and table.dtype == torch.float32:
+        return plan, None
+    partial = torch.empty(n_copies * table.numel(), dtype=torch.float32, device=table.device)
+    plan.partial = partial.data_ptr()
+    return plan, partial
+
+
 def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
                                bound: torch.Tensor, g: torch.Tensor,
                                size: Optional[torch.Tensor] = None,
@@ -275,9 +319,10 @@ def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
     spread over the copies of :func:`interp_grad_copies` (one count in
     ``.launches`` per call).
 
-    Returns (d_grid (X, Y, Z, F), d_x (N, 3) or None when ``need_x`` is
-    false).  d_grid is scattered with atomics, so its float32 sums run in an
-    order that varies from run to run.  With ``need_grid=False`` the
+    Returns (d_grid (X, Y, Z, F) in the grid's dtype, d_x (N, 3) or None when
+    ``need_x`` is false).  d_grid is scattered with atomics, so its float32
+    sums run in an order that varies from run to run; a bf16 grid's is
+    summed in float32 copies and rounded once.  With ``need_grid=False`` the
     points-only mode computes d_x alone, allocates no table gradient and no
     copies and makes no atomic adds (one count in ``.points_launches``), and
     returns (None, d_x).
@@ -295,12 +340,7 @@ def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
     d_grid = torch.empty_like(grid)
     d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
            if need_x else None)
-    copies = _GradPlanArgs(n_copies, None)
-    if n_copies > 1:
-        # Freed on return, while the kernels may still run: PyTorch's caching
-        # allocator hands the block out again only in this stream's order.
-        partial = torch.empty(n_copies * grid.numel(), dtype=torch.float32, device=x.device)
-        copies.partial = partial.data_ptr()
+    copies, _partial = _grad_plan(grid, n_copies)
     _launch("mtt_grid_interp_backward", x.device,
             _pack(grid, x, bound, size, d_grid, g, d_x), copies)
     grid_interpolate_grad_cuda.launches += 1
@@ -312,8 +352,10 @@ grid_interpolate_grad_cuda.points_launches = 0
 
 
 def grid_interpolate_plain(grid, x, bound, size=None):
-    """The forward kernel's plain version: ``ops/interp.py::grid_interpolate``."""
-    return interp.grid_interpolate(grid, x, bound, size)
+    """The forward kernel's plain version: ``ops/interp.py::grid_interpolate``
+    of ``grid.float()`` (through which a bf16 grid's gradient is summed in
+    float32 and rounded once, as the kernel's is)."""
+    return interp.grid_interpolate(grid.float(), x, bound, size)
 
 
 def corner_weight_derivatives(x, bound, spatial: Sequence[int], size=None):
@@ -352,18 +394,20 @@ def corner_weight_derivatives(x, bound, spatial: Sequence[int], size=None):
 def grid_interpolate_grad_plain(grid, x, bound, g, size=None, need_x=True,
                                 need_grid=True):
     """The backward kernel's plain version: the grid's gradient by an
-    ``index_add_`` scatter of the corner-weighted cotangents (skipped, and
-    None, when ``need_grid`` is false), and the points' gradient from the
-    weights' derivatives (:func:`corner_weight_derivatives`)."""
+    ``index_add_`` scatter of the corner-weighted cotangents in float32,
+    returned in the grid's dtype (skipped, and None, when ``need_grid`` is
+    false), and the points' gradient from the weights' derivatives
+    (:func:`corner_weight_derivatives`) and ``grid.float()``'s rows."""
     spatial = tuple(grid.shape[:3])
     F = grid.shape[-1]
+    table_dtype, grid = grid.dtype, grid.float()
     lin, w = interp.corner_indices_and_weights(x, bound, spatial, size)
     d_grid = None
     if need_grid:
         rows = (w.unsqueeze(-1) * g.unsqueeze(0)).reshape(-1, F)
         d_grid = torch.zeros((grid[..., 0].numel(), F), dtype=g.dtype, device=g.device)
         d_grid.index_add_(0, lin.reshape(-1), rows)
-        d_grid = d_grid.reshape(grid.shape)
+        d_grid = d_grid.reshape(grid.shape).to(table_dtype)
     if not need_x:
         return d_grid, None
     corners = torch.index_select(grid.reshape(-1, F), 0, lin.reshape(-1))
@@ -447,9 +491,7 @@ def _check_per_point(stacked, sub_ids, x, bounds, sizes, g=None):
             raise ValueError(f"cotangent has shape {tuple(g.shape)}, expected "
                              f"{(n, stacked.shape[-1])}")
         named.append(("cotangent", g))
-    for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} is {t.dtype}; the kernels take float32 only")
+    _check_dtypes(named)
     for name, t in named + [("sizes", sizes), ("sub_ids", sub_ids)]:
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -514,12 +556,7 @@ def grid_interpolate_per_point_grad_cuda(stacked, sub_ids, x, bounds, sizes, g,
     d_grid = torch.empty_like(stacked)
     d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
            if need_x else None)
-    copies = _GradPlanArgs(n_copies, None)
-    if n_copies > 1:
-        # Freed on return, while the kernels may still run: PyTorch's caching
-        # allocator hands the block out again only in this stream's order.
-        partial = torch.empty(n_copies * stacked.numel(), dtype=torch.float32, device=x.device)
-        copies.partial = partial.data_ptr()
+    copies, _partial = _grad_plan(stacked, n_copies)
     a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, d_grid, g, d_x)
     _launch("mtt_grid_interp_backward", x.device, a, copies)
     grid_interpolate_per_point_grad_cuda.launches += 1
@@ -532,23 +569,24 @@ grid_interpolate_per_point_grad_cuda.points_launches = 0
 
 def grid_interpolate_per_point_plain(stacked, sub_ids, x, bounds, sizes):
     """The slot-id forward's plain version:
-    ``ops/interp.py::grid_interpolate_per_point``."""
-    return interp.grid_interpolate_per_point(stacked, sub_ids, x, bounds, sizes)
+    ``ops/interp.py::grid_interpolate_per_point`` of ``stacked.float()``."""
+    return interp.grid_interpolate_per_point(stacked.float(), sub_ids, x, bounds, sizes)
 
 
 def grid_interpolate_per_point_grad_plain(stacked, sub_ids, x, bounds, sizes, g,
                                           need_x=True, need_grid=True):
     """The slot-id backward's plain version: the plain forward's vector-Jacobian
     product (its row gather's backward is an ``index_add_`` scatter into the
-    stacked storage).  Returns (d_stacked or None, d_x or None)."""
+    stacked storage, in float32, returned in the storage's dtype).  Returns
+    (d_stacked or None, d_x or None)."""
     with torch.enable_grad():
-        st = stacked.detach().requires_grad_(need_grid)
+        st = stacked.detach().float().requires_grad_(need_grid)
         xx = x.detach().requires_grad_(need_x)
         out = interp.grid_interpolate_per_point(st, sub_ids, xx, bounds, sizes)
         wrt = [t for t, need in ((st, need_grid), (xx, need_x)) if need]
         got = torch.autograd.grad(out, wrt, g, allow_unused=True)
     got = [torch.zeros_like(t) if d is None else d for d, t in zip(got, wrt)]
-    d_grid = got.pop(0) if need_grid else None
+    d_grid = got.pop(0).to(stacked.dtype) if need_grid else None
     d_x = got.pop(0) if need_x else None
     return d_grid, d_x
 

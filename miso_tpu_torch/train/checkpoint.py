@@ -16,6 +16,13 @@ structure, so a file written by one package loads in the other:
 Leaves are tensors, numpy arrays, numbers and ``torch.Generator``s (saved as
 their state bytes).  :func:`load_pytree` rebuilds the structure of ``like``
 from a file; a model in ``like`` is loaded in place.
+
+A bfloat16 tensor is stored as the JAX package stores one: numpy has no
+bfloat16, so the JAX package's arrays (``ml_dtypes.bfloat16``) go into the
+file as raw 2-byte elements (``'<V2'``, the bits of each value).  The port
+writes its bf16 tensors' bits the same way and reads such a leaf back as
+bfloat16, without ``ml_dtypes``.  (The JAX package's own ``load_pytree``
+cannot read these leaves: ``jnp.asarray`` refuses the ``V2`` dtype.)
 """
 from __future__ import annotations
 
@@ -41,12 +48,27 @@ def _children(node):
     return None
 
 
+# numpy's dtype of a bfloat16 leaf in a file: 2 raw bytes an element.
+BF16_FILE_DTYPE = np.dtype("V2")
+
+
 def _leaf_array(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Generator):
         return leaf.get_state().numpy()
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(BF16_FILE_DTYPE)
+        return t.numpy()
     return np.asarray(leaf)
+
+
+def _leaf_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """A file's array as a tensor on ``device``: a 2-byte raw leaf as the
+    bfloat16 values whose bits it holds."""
+    if arr.dtype == BF16_FILE_DTYPE:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(arr, device=device)
 
 
 def _flatten(node, prefix, out):
@@ -90,7 +112,7 @@ def _load(node, prefix, data):
         if tuple(arr.shape) != tuple(np.shape(node)):
             raise ValueError(f"{key}: saved shape {arr.shape}, expected {tuple(np.shape(node))}")
         if isinstance(node, torch.Tensor):
-            return torch.as_tensor(arr, device=node.device)
+            return _leaf_tensor(arr, node.device)
         return arr
     loaded = [(part, _load(child, f"{prefix}/{part}" if prefix else part, data))
               for part, child in kids]

@@ -1,24 +1,28 @@
 """SDF field extraction, meshing and sphere tracing (port of
 ``miso_tpu/utils/sdf.py``: the label masks, ``extract_fields``,
-``extract_geometry``, ``save_mesh``, ``observed_sdf_query``, PLY IO and
-``sphere_tracing``).
+``extract_geometry``, ``save_mesh``, ``cast_feature_storage``,
+``observed_sdf_query``, PLY IO and ``sphere_tracing``).
 
 Field evaluation is a chunked loop on the device: each chunk's lattice
 points are made on the device, the query runs under ``torch.no_grad()``,
 and the values stay on the device until the whole lattice is done.
-Marching cubes runs in the native C++ runtime.  The JAX package's scan
+Marching cubes runs in the native C++ runtime.  ``feature_dtype`` of
+``extract_geometry`` and ``save_mesh`` queries a copy of the model whose
+feature and stability storage is cast (bfloat16: the interp and fused
+kernels read it as it is stored and sum in float32).  The JAX package's scan
 bucketing, watchdog budget, ``prewarm_extract_fields`` and
 ``_forward_only_query`` are TPU dispatch and compile means with no
-counterpart here; bf16 feature storage (``cast_feature_storage``) waits for
-a later slice.
+counterpart here.
 """
 from __future__ import annotations
 
+import copy
 import os
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 def sign_mask_from_gt_sdf(gt_sdf, trunc_dist=0.15):
@@ -80,10 +84,71 @@ def extract_fields(query_func: Callable, bound, resolution: int,
     return out.cpu().numpy().reshape(resolution, resolution, resolution)
 
 
-def extract_geometry(query_func, bound, resolution=256, threshold=0.0, device=None):
-    """Field eval + marching cubes -> (verts, tris) in world coords."""
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a dtype or its name (``"bfloat16"``)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    got = getattr(torch, str(dtype), None)
+    if not isinstance(got, torch.dtype):
+        raise ValueError(f"not a torch dtype: {dtype!r}")
+    return got
+
+
+def _cast_tables(tables, dtype):
+    """Detached copies of a model's tables (tensors, or a VM level's dict of
+    factors) in ``dtype``."""
+    return [{k: v.detach().to(dtype) for k, v in t.items()} if isinstance(t, dict)
+            else t.detach().to(dtype) for t in tables]
+
+
+def cast_feature_storage(query_func, dtype=torch.bfloat16):
+    """A copy of ``query_func`` whose feature and stability storage is cast to
+    ``dtype`` (a torch dtype or its name); the original is untouched.
+
+    Works on a ``GridNet`` (every other tensor shared with the original), on
+    ``GridAtlasParams`` and on an ``ObservedQuery`` (its model cast).  Any
+    other callable comes back as it is.  Queries of a bf16 copy read the
+    tables as stored and sum in float32, so fields and meshes stay float32.
+    """
+    from miso_tpu_torch.models.grid_atlas import GridAtlasParams
+    from miso_tpu_torch.models.grid_net import GridNet
+
+    dtype = _torch_dtype(dtype)
+    if isinstance(query_func, ObservedQuery):
+        return ObservedQuery(cast_feature_storage(query_func.model, dtype),
+                             query_func.stability_thresh, query_func.fill_value)
+    if isinstance(query_func, GridAtlasParams):
+        return query_func.replace(features=_cast_tables(query_func.features, dtype),
+                                  stability=_cast_tables(query_func.stability, dtype))
+    if isinstance(query_func, GridNet):
+        # A deep copy of the module's structure that shares every tensor, then
+        # new tables in place of the copy's.
+        shared = {id(t): t for t in (*query_func.parameters(), *query_func.buffers())}
+        out = copy.deepcopy(query_func, shared)
+        features = _cast_tables(query_func.features, dtype)
+        if query_func.grid_type == "VM":
+            out.features = nn.ModuleList([nn.ParameterDict(
+                {k: nn.Parameter(v, requires_grad=False) for k, v in f.items()})
+                for f in features])
+        else:
+            out.features = nn.ParameterList(
+                [nn.Parameter(f, requires_grad=False) for f in features])
+        out.stability = nn.ParameterList(
+            [nn.Parameter(st, requires_grad=False)
+             for st in _cast_tables(query_func.stability, dtype)])
+        return out
+    return query_func
+
+
+def extract_geometry(query_func, bound, resolution=256, threshold=0.0, device=None,
+                     feature_dtype=None):
+    """Field eval + marching cubes -> (verts, tris) in world coords.
+    ``feature_dtype`` (``"bfloat16"`` or a torch dtype): query a copy with
+    that feature storage (:func:`cast_feature_storage`)."""
     from miso_tpu_torch.native import marching_cubes
 
+    if feature_dtype is not None:
+        query_func = cast_feature_storage(query_func, feature_dtype)
     b = np.asarray(bound, np.float32)
     u = extract_fields(query_func, bound, resolution, device=device)
     spacing = (b[:, 1] - b[:, 0]) / (resolution - 1.0)
@@ -92,14 +157,15 @@ def extract_geometry(query_func, bound, resolution=256, threshold=0.0, device=No
 
 def save_mesh(query_func, bound, save_path: Optional[str] = None,
               resolution: int = 256, transform: Optional[np.ndarray] = None,
-              device=None):
+              device=None, feature_dtype=None):
     """Extract a mesh and optionally write a binary PLY; returns a native
-    ``TriangleMesh``."""
+    ``TriangleMesh``.  ``feature_dtype``: see :func:`extract_geometry`."""
     from miso_tpu_torch.native import TriangleMesh
 
     if isinstance(bound, torch.Tensor):
         bound = bound.detach().cpu().numpy()
-    verts, tris = extract_geometry(query_func, bound, resolution, device=device)
+    verts, tris = extract_geometry(query_func, bound, resolution, device=device,
+                                   feature_dtype=feature_dtype)
     if transform is not None:
         T = np.asarray(transform)
         verts = (verts @ T[:3, :3].T + T[:3, 3]).astype(np.float32)

@@ -30,6 +30,12 @@ split by kernel; for the shipped wrappers also the call by CUDA events
     and at F = 4 ``staged256`` (the staged kernel in 256-thread blocks, as
     many as fit) and ``ilp<k>`` (k points a thread, all 8k loads issued
     first);
+  * the interp forward on the ScanNet fine level's table in bf16 with 1e6
+    points: ``shipped`` (the wrapper: the bf16 table copied in 16-byte
+    pairs, then gathered), ``l2`` (the shipped entry forced to the unpaired
+    bf16 rows) and ``f32_pairs`` (the same values in float32 on the paired
+    path), each timed twice in turns: the measurement behind pairing bf16
+    rows;
   * the fused kernel at the ScanNet widths with 1e6 points: ``shipped``,
     ``all_l2`` (no table staged), ``fma_u`` (``csrc`` with u contracted into
     an FMA in ``mtt_grid.cuh``, as the first fused kernel rounded it), ``old``
@@ -245,6 +251,42 @@ def forward_designs(libs, calls):
     return report
 
 
+def bf16_designs(libs, calls):
+    """The ScanNet fine level's forward from a bf16 table: the shipped
+    paired path against the unpaired bf16 rows and the float32 table in
+    pairs, in turns, each held to the plain version first."""
+    lib = libs["forward"]
+    g = chip_smoke.SCANNET_MODEL["grid"]
+    grid32, x, bound = chip_smoke._grid_case(g["bound"], g["base_cell_size"] / g["per_level_scale"],
+                                             4, chip_smoke.N_POINTS, 390)
+    grid16 = grid32.to(torch.bfloat16)
+    grid32 = grid16.float()          # the same values in float32
+    ref = ti.grid_interpolate_plain(grid16, x, bound)
+    rec = {"grid": list(grid16.shape), "points": chip_smoke.N_POINTS,
+           "shipped_path": ti.interp_forward_path(grid16, chip_smoke.N_POINTS, True),
+           "designs": {}}
+    for design in ("shipped", "l2", "f32_pairs", "f32_pairs_again", "l2_again",
+                   "shipped_again"):
+        out = torch.empty_like(ref)
+        if design.startswith("shipped"):
+            run = lambda: ti.grid_interpolate_cuda(grid16, x, bound)  # noqa: E731
+            out = run()
+        elif design.startswith("l2"):
+            a = ti._pack(grid16, x, bound, None, out)
+            run = _caller(lib.mtt_grid_interp_forward, out, a, 0, None)
+        else:
+            pairs = torch.empty(2 * grid32.numel(), device=x.device)
+            a = ti._pack(grid32, x, bound, None, out)
+            run = _caller(lib.mtt_grid_interp_forward, (out, pairs), a, 2,
+                          ctypes.c_void_p(pairs.data_ptr()))
+        r = measure(run, out, ref, calls)
+        r["call_ms"] = chip_smoke.cuda_ms(run, calls=calls)
+        rec["designs"][design] = r
+        _line(f"interp bf16 scannet_fine {tuple(grid16.shape)} x {chip_smoke.N_POINTS} {design}",
+              r)
+    return rec
+
+
 class _OldMlp(ctypes.Structure):
     """``MttMlp`` of fused_old.cu."""
     _fields_ = [("n_layers", ctypes.c_int), ("max_width", ctypes.c_int),
@@ -359,11 +401,13 @@ def main() -> int:
     libs = build()
     report = {"card": card, "probe": probes(libs["forward"], args.calls),
               "forward": forward_designs(libs, args.calls),
+              "forward_bf16": bf16_designs(libs, args.calls),
               "fused": fused_designs(libs, args.calls)}
     print(json.dumps(report), flush=True)
     ok = all(r["ok"] for shape in report["forward"].values()
              for r in shape["designs"].values())
     ok &= all(r["ok"] for r in report["fused"].values())
+    ok &= all(r["ok"] for r in report["forward_bf16"]["designs"].values())
     return 0 if ok else 1
 
 

@@ -123,7 +123,7 @@ __global__ void __launch_bounds__(VF_THREADS)
 vf_l2_generic_kernel(const __grid_constant__ MttInterpArgs a) {
   const long long p = (long long)blockIdx.x * VF_THREADS + threadIdx.x;
   if (p >= a.n) return;
-  mtt_interp_point<false, 0>(a, a.grid, p);
+  mtt_interp_point<false, 0>(a, static_cast<const float*>(a.grid), p);
 }
 
 __global__ void __launch_bounds__(VF_THREADS)
@@ -189,7 +189,7 @@ vf_pair_gather_kernel(const __grid_constant__ MttInterpArgs a, const float* __re
       acc.z = fmaf(w1, v[2 * c + 1].z, fmaf(w0, v[2 * c].z, acc.z));
       acc.w = fmaf(w1, v[2 * c + 1].w, fmaf(w0, v[2 * c].w, acc.w));
     }
-    *reinterpret_cast<float4*>(a.out + p * F + f) = acc;
+    *reinterpret_cast<float4*>(static_cast<float*>(a.out) + p * F + f) = acc;
   }
 }
 
@@ -197,8 +197,8 @@ __global__ void __launch_bounds__(VF_THREADS)
 vf_staged256_kernel(const __grid_constant__ MttInterpArgs a) {
   extern __shared__ float4 smem4[];
   float* table = reinterpret_cast<float*>(smem4);
-  mtt_stage_table(a.grid, table, (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim,
-                  threadIdx.x, VF_THREADS);
+  mtt_stage_table(static_cast<const float*>(a.grid), table,
+                  (long long)a.dims[0] * a.dims[1] * a.dims[2] * a.fdim, threadIdx.x, VF_THREADS);
   __syncthreads();
   for (long long p = (long long)blockIdx.x * VF_THREADS + threadIdx.x; p < a.n;
        p += (long long)gridDim.x * VF_THREADS) {

@@ -972,3 +972,198 @@ def test_interp_dispatch_raises_on_a_2d_card_grid(dev):
     with pytest.raises(ValueError, match="3D"):
         grid_interpolate_dispatch(grid, torch.zeros((3, 2), device=dev),
                                   torch.tensor([[0.0, 1.0], [0.0, 1.0]], device=dev))
+
+
+# bf16 tables: every case above again in bf16.  Values as above; a bf16
+# table's gradient is the float32 one rounded once (the kernel sums in
+# float32 copies), so each entry is held to the plain version's float32
+# gradient within half a bf16 step (2^-8 of the entry) beyond 1e-4 of the
+# largest entry; the points' gradient (float32) as above.
+def _bf16_grad_close(got, ref32):
+    assert got.dtype == torch.bfloat16 and got.shape == ref32.shape
+    if ref32.numel():
+        excess = ((got.float() - ref32).abs() - 2.0 ** -8 * ref32.abs()).clamp(min=0)
+        assert float(excess.max()) <= 1e-4 * max(float(ref32.abs().max()), 1e-6)
+
+
+BF16_INTERP_CASES = ["F4", "F12", "F1_odd", "scannet_coarse_1e6", "dense_region_1e6",
+                     "large_grid", "padded", "padded_F1", "padded_1e6", "on_face", "n0", "n1",
+                     "staging_budget_over"]
+
+
+@pytest.mark.parametrize("case", BF16_INTERP_CASES, ids=BF16_INTERP_CASES)
+def test_bf16_interp_kernels_match_plain(dev, case):
+    """The forward (staged and L2 paths) and all three backward modes on a
+    bf16 table, each launch counted as a float32 one is."""
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_grad_cuda,
+                                                 grid_interpolate_grad_plain,
+                                                 grid_interpolate_plain)
+    grid, x, bound, size, _ = _interp_case(dev, case)
+    grid = grid.to(torch.bfloat16)
+    before = (grid_interpolate_cuda.launches, grid_interpolate_grad_cuda.launches,
+              grid_interpolate_grad_cuda.points_launches)
+    out = grid_interpolate_cuda(grid, x, bound, size)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(out, grid_interpolate_plain(grid, x, bound, size), atol=1e-4,
+                               rtol=1e-4)
+    g = torch.randn((x.shape[0], grid.shape[-1]), device=dev)
+    r_grid, r_x = grid_interpolate_grad_plain(grid.float(), x, bound, g, size)
+    d_grid, d_x = grid_interpolate_grad_cuda(grid, x, bound, g, size)
+    _bf16_grad_close(d_grid, r_grid)
+    _grad_close(d_x, r_x)
+    only, _ = grid_interpolate_grad_cuda(grid, x, bound, g, size, need_x=False)
+    _bf16_grad_close(only, r_grid)
+    _, p_x = grid_interpolate_grad_cuda(grid, x, bound, g, size, need_grid=False)
+    _grad_close(p_x, r_x)
+    torch.cuda.synchronize()
+    assert (grid_interpolate_cuda.launches, grid_interpolate_grad_cuda.launches,
+            grid_interpolate_grad_cuda.points_launches) == (before[0] + 1, before[1] + 2,
+                                                            before[2] + 1)
+
+
+@pytest.mark.parametrize("case", list(SLOT_CASES), ids=list(SLOT_CASES))
+def test_bf16_slot_interp_kernels_match_plain(dev, case):
+    from miso_tpu_torch.ops.tiled_interp import (
+        grid_interpolate_per_point_cuda, grid_interpolate_per_point_grad_cuda,
+        grid_interpolate_per_point_grad_plain, grid_interpolate_per_point_plain)
+    stacked, *rest = _slot_case(dev, *SLOT_CASES[case])
+    args = (stacked.to(torch.bfloat16), *rest)
+    n, F = args[2].shape[0], stacked.shape[-1]
+    torch.testing.assert_close(grid_interpolate_per_point_cuda(*args),
+                               grid_interpolate_per_point_plain(*args), atol=1e-4, rtol=1e-4)
+    g = torch.randn((n, F), generator=torch.Generator(device=dev).manual_seed(1), device=dev)
+    r_st, r_x = grid_interpolate_per_point_grad_plain(args[0].float(), *rest, g)
+    d_st, d_x = grid_interpolate_per_point_grad_cuda(*args, g)
+    _bf16_grad_close(d_st, r_st)
+    only, _ = grid_interpolate_per_point_grad_cuda(*args, g, need_x=False)
+    _bf16_grad_close(only, r_st)
+    _, p_x = grid_interpolate_per_point_grad_cuda(*args, g, need_grid=False)
+    if n:
+        _grad_close(d_x, r_x)
+        _grad_close(p_x, r_x)
+
+
+@pytest.mark.parametrize("shape", [(2, 4, 64, 1, 1), (3, 8, 64, 2, 3), (1, 1, 4, 0, 1)])
+def test_bf16_fused_kernel_matches_plain(dev, shape):
+    from miso_tpu_torch.ops.fused_decode import (fused_interp_decode_cuda,
+                                                 fused_interp_decode_plain)
+    grids, x, bound, decoder = _case(dev, *shape)
+    grids = [g.to(torch.bfloat16) for g in grids]
+    before = fused_interp_decode_cuda.launches
+    torch.testing.assert_close(fused_interp_decode_cuda(grids, x, bound, decoder),
+                               fused_interp_decode_plain(grids, x, bound, decoder),
+                               atol=1e-4, rtol=1e-4)
+    assert fused_interp_decode_cuda.launches == before + 1
+
+
+def test_kernels_refuse_other_table_dtypes(dev):
+    """A float16 or float64 table raises, and so do fused levels of two
+    dtypes; nothing is launched."""
+    from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
+                                                 grid_interpolate_per_point_cuda)
+    grids, x, bound, decoder = _case(dev, 2, 4, 64, 1, 1)
+    before = (grid_interpolate_cuda.launches, fused_interp_decode_cuda.launches)
+    for dtype in (torch.float16, torch.float64):
+        with pytest.raises(TypeError):
+            grid_interpolate_cuda(grids[0].to(dtype), x, bound)
+        with pytest.raises(TypeError):
+            grid_interpolate_per_point_cuda(
+                grids[0].to(dtype)[None], torch.zeros(x.shape[0], dtype=torch.int32, device=dev),
+                x, bound[None], torch.tensor([grids[0].shape[:3]], dtype=torch.int32,
+                                             device=dev))
+        with pytest.raises(TypeError):
+            fused_interp_decode_cuda([g.to(dtype) for g in grids], x, bound, decoder)
+    with pytest.raises(TypeError):
+        fused_interp_decode_cuda([grids[0], grids[1].to(torch.bfloat16)], x, bound, decoder)
+    assert (grid_interpolate_cuda.launches, fused_interp_decode_cuda.launches) == before
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_bf16_grid_net_trains_through_the_kernels(dev, impl):
+    """A GridNet with grid.feature_dtype bfloat16 on the card, with the
+    default decode and the fused op: its forward, the backward and masked
+    Adam keep bf16 tables, the kernels are launched on them (the interp
+    forward and backward a level, or the fused kernel, whose backward is the
+    torch recompute), and no float32 copy of a table is made."""
+    from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
+    from miso_tpu_torch.ops.fused_decode import fused_interp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
+    from miso_tpu_torch.train.optim import masked_adam_init, masked_adam_update
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.1,
+                    "feature_dtype": "bfloat16", "bound": [[-2, 2]] * 3,
+                    "base_cell_size": 0.25, "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 16, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": False, "pretrained_model": None,
+                       "impl": impl},
+           "pose": {"optimize": False, "num_poses": 1}}
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    assert model.features[0].dtype == torch.bfloat16
+    x = torch.rand((4096, 3), device=dev) * 4 - 2
+    state = masked_adam_init(model)
+    named = dict(model.named_parameters())
+    mask = grid_net_mask(model)
+
+    def forward_backward():
+        loss = (model(x) ** 2).mean()
+        grads = torch.autograd.grad(loss, list(named.values()), allow_unused=True)
+        return {k: torch.zeros_like(named[k]) if g is None else g
+                for k, g in zip(named, grads)}
+
+    # A first step allocates the libraries' workspaces, once.
+    masked_adam_update(forward_backward(), state, model, mask, lr=1e-2)
+    counts = lambda: (grid_interpolate_cuda.launches, grid_interpolate_grad_cuda.launches,
+                      fused_interp_decode_cuda.launches)
+    before = counts()
+    # The largest float32 copy the step could make is the fine table's.
+    table32 = max(f.numel() * 4 for f in model.features)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    grads = forward_backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) - start
+    assert grads["features.1"].dtype == torch.bfloat16
+    masked_adam_update(grads, state, model, mask, lr=1e-2)
+    assert model.features[1].dtype == torch.bfloat16
+    want = (2, 2, 0) if impl == "xla" else (0, 0, 1)
+    assert tuple(a - b for a, b in zip(counts(), before)) == want
+    # The forward and backward hold the bf16 gradients (2 bytes an element of
+    # the 64^3 x 4 fine table) and the interp backward's float32 scratch (one
+    # copy, 4 bytes), about 1.5 float32 tables; a float32 copy of the table
+    # and its float32 gradient would add 2 more.
+    assert peak < 2 * table32
+
+
+def test_bf16_grid_net_frozen_query_and_eikonal(dev):
+    """A bf16 GridNet's frozen query (LM tracking: the points-only backward on
+    the bf16 tables, no table gradient) and the autograd eikonal (a second
+    order through the differentiable recompute, which gathers bf16 rows)."""
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.ops.tiled_interp import _GridInterp, grid_interpolate_grad_cuda
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.1,
+                    "feature_dtype": "bfloat16", "bound": [[-1, 1]] * 3,
+                    "base_cell_size": 0.5, "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 16, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": False, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 1}}
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    x = (torch.rand((4096, 3), device=dev) * 1.8 - 0.9).requires_grad_()
+    before = (grid_interpolate_grad_cuda.launches, grid_interpolate_grad_cuda.points_launches)
+    gx, = torch.autograd.grad(model(x, frozen=True).sum(), x)
+    torch.cuda.synchronize()
+    assert (grid_interpolate_grad_cuda.launches, grid_interpolate_grad_cuda.points_launches) == \
+        (before[0], before[1] + 2)
+    cpu = copy.deepcopy(model).to("cpu")
+    xc = x.detach().cpu().requires_grad_()
+    gc, = torch.autograd.grad(cpu(xc, frozen=True).sum(), xc)
+    _grad_close(gx.cpu(), gc)
+    recomputes = _GridInterp.recomputes
+    g, = torch.autograd.grad(model(x).sum(), x, create_graph=True)
+    eik = ((torch.linalg.vector_norm(g, dim=-1) - 1) ** 2).mean()
+    d_fine, = torch.autograd.grad(eik, model.features[1])
+    assert _GridInterp.recomputes == recomputes + 2
+    assert d_fine.dtype == torch.bfloat16 and bool(torch.isfinite(d_fine.float()).all())
