@@ -231,9 +231,32 @@ Phases, in order; any failure exits non-zero and prints no result:
                and a live view (slam/live_viewer.py) over a bf16 System run
                of two submaps, /state.json read back, then the submaps
                aligned and meshed on bf16 storage;
+ 11. parallel - miso_tpu_torch/parallel on torch.distributed (phase_parallel):
+               (a) one NCCL rank (file rendezvous, world size 1) runs
+               data_parallel_train_step at phase 3's widths, 1e6 points a
+               step, 3 steps, held to make_train_step (losses 1e-5,
+               features and decoder 1e-4 of the largest entry); (b) two
+               ranks sharing the card over gloo (this script with
+               --parallel-rank, each with its own timeout, both killed when
+               it runs out), from the parent's save_pytree files: the
+               data-parallel step on 5e5 points a rank against (a); the
+               pair-sharded hierarchical alignment on phase 7's atlas with a
+               third submap (3 pairs padded to 4, 6 steps a stage) against
+               the unsharded run (poses 1e-5 relative, 1e-6 absolute); sharded_grid_interpolate
+               on 2 x-slabs of the ScanNet fine level, 1e6 points, against
+               the unsharded kernel (values 1e-5, gradients 1e-4 of the
+               largest entry); sharded_sdf_train_step, 20 steps, its loss
+               falling; scene_parallel_decoder_step, 4 scenes, 2 a rank, 10
+               steps against one rank (decoder 1e-4 of the largest entry);
+               each rank's line with its launches, each kernel non-zero; (c)
+               training/train_decoder.py --synthetic --parallel and its
+               round-robin path at their defaults, per-scene MAE on held-out
+               samples within 30 % of scripts/jax_train_decoder.py's CPU run
+               (JAX_TRAIN_DECODER_*), and the saved decoder loaded fixed on
+               phase 4's scene for 100 epochs (its F-score a reading);
      report  - the card, step times, kernel times against the bound, and the
                kernels line (each kernel's launches summed over phase 3's
-               default-decode run, phases 4 to 10; the fused kernel's in phase
+               default-decode run, phases 4 to 11; the fused kernel's in phase
                3's fused run; each kernel's max_abs_err over its float32 and
                bf16 checks, its bf16 times beside); the last line is
                {"ok": true, "device": ...}.
@@ -3947,7 +3970,8 @@ def _bf16_times(grid32, x, bound, cot):
     taken in turns: forward, backward table only, with the points' gradient,
     points only (call ms by CUDA events, device ms by the profiler), the bf16
     plain version, grid_sample on the bf16 volume (forward; backward, the
-    table's gradient), and each call's bound at its table's element size."""
+    table's gradient; backward, the points' gradient only), and each call's
+    bound at its table's element size."""
     from miso_tpu_torch.ops.tiled_interp import (grid_interpolate_cuda,
                                                  grid_interpolate_grad_cuda,
                                                  grid_interpolate_grad_plain,
@@ -3993,6 +4017,12 @@ def _bf16_times(grid32, x, bound, cot):
     gout = cot.T.reshape(out.shape).to(torch.bfloat16).contiguous()
     rec["grad"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(out, vol_r, gout,
                                                                     retain_graph=True))
+    # The points-only mode's library call: grid_sample's backward with only
+    # its sampling grid's (the points') gradient, on the bf16 volume.
+    coords_r = coords.clone().requires_grad_()
+    out_x = _grid_sample(vol, coords_r)
+    rec["points_only"]["library_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        out_x, coords_r, gout, retain_graph=True))
     return rec
 
 
@@ -4499,6 +4529,548 @@ def phase_apps(card):
     return dict(training=training, clis=clis, live=live, launches=launches)
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: parallel/ on torch.distributed, and decoder pretraining.
+# ---------------------------------------------------------------------------
+
+PAR_STEPS = 3                   # (a) and (b) 1: data-parallel steps
+PAR_RANK_POINTS = 500_000       # (b) 1: points a rank; (a) takes both ranks' rows
+PAR_TIMEOUT_S = 420             # a rank's process, and every collective
+PAR_ALIGN_EPOCHS = 100          # (b) 2: phase 7's atlas builder, cut from 250 epochs
+PAR_ALIGN_ITERS = 5             # (b) 2: iterations a stage, cut from 150 (see par_align)
+PAR_SPATIAL_POINTS = 1_000_000  # (b) 3
+PAR_SDF_STEPS = 20              # (b) 4
+PAR_SDF_POINTS = 2 ** 18
+PAR_SCENE_STEPS = 10            # (b) 5
+PAR_SCENE_LR = 1e-3
+# The tolerances: losses 1e-5 relative; parameters and gradients 1e-4 of the
+# largest entry (the interp backward's atomics add in a run-dependent order);
+# the spatial query's values 1e-5; the alignment's pose corrections 1e-5
+# relative and 1e-6 absolute (tests/test_parallel.py's sharded-against-one).
+PAR_LOSS_RTOL = 1e-5
+PAR_OF_MAX = 1e-4
+PAR_VALUE_ATOL = 1e-5
+PAR_POSE_TOL = dict(rtol=1e-5, atol=1e-6)
+# The kernels every rank of (b) must launch.
+PAR_RANK_KERNELS = ("interp", "interp_grad", "interp_slot", "interp_slot_grad",
+                    "interp_slot_points_grad", "decode")
+# (c): training/train_decoder.py --synthetic, both paths at their defaults,
+# against `JAX_PLATFORMS=cpu python3 scripts/jax_train_decoder.py` (per-scene
+# SDF MAE on held-out samples, each stage's last loss).
+PRETRAIN_TRUNC = 0.15
+PRETRAIN_HELDOUT = 2 ** 14
+PRETRAIN_MAE_MARGIN = 0.30
+PRETRAIN_GRID_EPOCHS = 100
+JAX_TRAIN_DECODER_PARALLEL_MAE = [0.008200222626328468, 0.008246292360126972,
+                                  0.00882817804813385, 0.009139083325862885]
+JAX_TRAIN_DECODER_PARALLEL_LOSSES = {"coarse": 7.727276802062988, "fine": 2.0363378524780273,
+                                     "joint": 1.8474637269973755}
+JAX_TRAIN_DECODER_ROUND_ROBIN_MAE = [0.008799007162451744, 0.009841996245086193,
+                                     0.010318783111870289, 0.010485871694982052]
+JAX_TRAIN_DECODER_ROUND_ROBIN_LOSSES = {"coarse": 10.310046195983887, "fine": 3.54675555229187,
+                                        "joint": 2.9990956783294678}
+
+
+def _rel_err(got, ref):
+    return float(torch.max(torch.abs(got - ref)) / torch.clamp(torch.max(torch.abs(ref)),
+                                                                 min=1e-30))
+
+
+def _param_errs(got: dict, ref: dict, prefixes=("features", "decoder")):
+    """The largest error of each group's tensors, as a fraction of the
+    group's largest reference entry."""
+    out = {}
+    for p in prefixes:
+        keys = [k for k in ref if k.startswith(p)]
+        scale = max(float(torch.max(torch.abs(ref[k].detach()))) for k in keys)
+        out[p] = max(float(torch.max(torch.abs(got[k].detach().to(ref[k].device)
+                                               - ref[k].detach()))) for k in keys)
+        out[p] /= max(scale, 1e-30)
+    return out
+
+
+def par_dp_model(dev, path=None):
+    """(b) 1's GridNet at the ScanNet widths, from ``path`` when given."""
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.train.checkpoint import load_pytree
+    model = create_grid_net(SCANNET_MODEL, generator=torch.Generator().manual_seed(0),
+                            device=dev)
+    if path is not None:
+        load_pytree(path, like=model)
+    return model
+
+
+def par_dp_steps(model, mesh, batches, counters=None):
+    """PAR_STEPS data-parallel steps (mapping_loss, bench.py's hyper-
+    parameters); per step the loss and the ms by CUDA events."""
+    from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+    from miso_tpu_torch.models.grid_net import grid_net_mask
+    from miso_tpu_torch.parallel.sharding import data_parallel_train_step, shard_batch
+    from miso_tpu_torch.train.optim import masked_adam_init
+    step = data_parallel_train_step(make_loss(mapping_loss, **MAPPING_HYPER), mesh)
+    mask = grid_net_mask(model, level=model.num_levels, pose=False)
+    opt = masked_adam_init(model)
+    shards = [shard_batch(b, mesh) for b in batches]
+    losses, ms = [], []
+    for b in shards:
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        model, opt, tl, _ = step(model, opt, b, None, mask, 1e-3)
+        e.record()
+        torch.cuda.synchronize()
+        losses.append(float(tl))
+        ms.append(s.elapsed_time(e))
+    return losses, ms
+
+
+def par_one_rank(work, counters):
+    """(a): one NCCL rank (a file rendezvous, world size 1) runs the
+    data-parallel step at the ScanNet widths on 1e6 points a step, held to
+    make_train_step on the same batches."""
+    from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+    from miso_tpu_torch.models.grid_net import grid_net_mask
+    from miso_tpu_torch.parallel import distributed
+    from miso_tpu_torch.parallel.sharding import make_mesh
+    from miso_tpu_torch.train.checkpoint import save_pytree
+    from miso_tpu_torch.train.optim import masked_adam_init
+    from miso_tpu_torch.train.trainer import make_train_step
+    dev = torch.device("cuda")
+    model = par_dp_model(dev)
+    save_pytree(os.path.join(work, "dp_model.npz"), model)
+    batches = mapping_batches(2 * PAR_RANK_POINTS, PAR_STEPS, dev)
+    ref = copy.deepcopy(model)
+    step = make_train_step(make_loss(mapping_loss, **MAPPING_HYPER))
+    mask = grid_net_mask(ref, level=ref.num_levels, pose=False)
+    opt = masked_adam_init(ref)
+    ref_losses = []
+    for b in batches:
+        ref, opt, tl, _ = step(ref, opt, b, None, mask, 1e-3)
+        ref_losses.append(float(tl))
+    distributed.initialize(f"file://{os.path.join(work, 'store_a')}", 1, 0, backend="nccl",
+                           device="cuda:0", timeout_s=PAR_TIMEOUT_S)
+    try:
+        mesh = make_mesh(1, ("data",))
+        torch.cuda.synchronize()
+        _zero_counts(counters)
+        losses, ms = par_dp_steps(model, mesh, batches)
+        launches = _read_counts(counters)
+    finally:
+        torch.distributed.destroy_process_group()
+    got = dict(model.named_parameters())
+    save_pytree(os.path.join(work, "dp_a.npz"), {k: v.detach() for k, v in got.items()})
+    errs = _param_errs(got, dict(ref.named_parameters()))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    log(f"  (a) one NCCL rank, data_parallel_train_step at the ScanNet widths, "
+        f"{2 * PAR_RANK_POINTS} points a step: {' '.join(f'{v:.3f}' for v in ms)} ms a step "
+        f"(CUDA events); losses {losses} against make_train_step's {ref_losses} (rel "
+        f"{rel:.2e}); features / decoder off by {errs['features']:.2e} / "
+        f"{errs['decoder']:.2e} of the largest entry; launches {launches}")
+    check(rel <= PAR_LOSS_RTOL, f"(a): losses {losses} against {ref_losses}")
+    check(max(errs.values()) <= PAR_OF_MAX, f"(a): parameters off by {errs}")
+    for name in ("interp", "interp_grad", "decode"):
+        check(launches[name] > 0, f"(a): {name} was not launched")
+    return dict(step_ms=ms, losses=losses, ref_losses=ref_losses, loss_rel=rel,
+                param_errs=errs, launches=launches)
+
+
+def par_align_atlas(spec, dev, path=None):
+    """(b) 2's atlas: phase 7's two trained submaps and a third, a copy of
+    submap 0 at its centre; every submap but 0 perturbed as phase 7 does.
+    With ``spec`` and ``path``: that atlas's structure, filled from the file."""
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    from miso_tpu_torch.train.checkpoint import load_pytree
+    if path is None:
+        atlas, centers, _ = build_align_atlas(dev, PAR_ALIGN_EPOCHS)
+        bound = atlas.params.bounds[0].cpu().numpy()
+        atlas.add_submap(bound, np.eye(3, dtype=np.float32), centers[0])
+        atlas.add_kf()
+        atlas.set_submap(2, atlas.get_submap(0))
+        perturb_submaps(atlas)
+        spec = {"cfg": atlas.cfg_model, "bound": bound.tolist(),
+                "centers": [np.asarray(c).tolist() for c in centers + [centers[0]]]}
+        return atlas, spec
+    atlas = GridAtlas(spec["cfg"], max_kfs_per_submap=1, device=dev)
+    for c in spec["centers"]:
+        atlas.add_submap(np.asarray(spec["bound"], np.float32), np.eye(3, dtype=np.float32),
+                         np.asarray(c, np.float32))
+        atlas.add_kf()
+    load_pytree(path, like=atlas.params)
+    return atlas
+
+
+def par_align(atlas, mesh=None):
+    """(b) 2's alignment: PAR_ALIGN_ITERS + 1 steps a stage.  The sharded
+    and unsharded runs add the pairs' terms and the pose gradient in other
+    orders, and Adam amplifies that rounding as the poses converge: on an
+    H100 they parted by 0.8-6.7e-6 after 3 x 16 and 3 x 31 steps, above
+    the tolerance, so the gate compares the first 3 x 6."""
+    from miso_tpu_torch.align.miso import align_multiple_submaps_hierarchical
+    align_multiple_submaps_hierarchical(
+        atlas, level_iters=PAR_ALIGN_ITERS, finetune_iters=PAR_ALIGN_ITERS, lr=ALIGN_LR,
+        align_loss="L2", latent_levels=[0, 1], skip_finetune=False, seed=0, mesh=mesh)
+    return (atlas.params.sub_rot_corr.detach().cpu(),
+            atlas.params.sub_trans_corr.detach().cpu())
+
+
+def par_spatial_inputs(dev):
+    """(b) 3: a random table at the ScanNet fine level's shape, 1e6 points (5 %
+    out of bound), a cotangent; the unsharded interp kernel's values and
+    gradients through grid_interpolate_dispatch.  Data, not state: the ranks
+    read it with torch.load."""
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_dispatch
+    grid, x, bound = _grid_case(*INTERP_SHAPES[0][1:3], 4, PAR_SPATIAL_POINTS, 511)
+    cot = torch.randn((PAR_SPATIAL_POINTS, 4), generator=torch.Generator(device=dev)
+                      .manual_seed(512), device=dev)
+    g = grid.clone().requires_grad_()
+    xr = x.clone().requires_grad_()
+    out = grid_interpolate_dispatch(g, xr, bound)
+    gg, gx = torch.autograd.grad(out, [g, xr], cot)
+    return {"grid": grid, "x": x, "bound": bound, "cot": cot, "values": out.detach(),
+            "grad_grid": gg, "grad_x": gx}
+
+
+def par_sdf_case(dev):
+    """(b) 4: the ScanNet levels' shapes at zero, a fixed 8 -> 64 -> 64 -> 1
+    decoder (the decode kernel), points in the bound and their distance to a
+    sphere of 2 m about the bound's centre."""
+    from miso_tpu_torch.models.grid_net import decoder_from_config
+    from miso_tpu_torch.ops.fused_decode import mlp_decode
+    bound = torch.tensor(SCANNET_MODEL["grid"]["bound"], device=dev)
+    decoder = decoder_from_config(SCANNET_MODEL, torch.Generator().manual_seed(3), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(513)
+    x = bound[:, 0] + torch.rand((PAR_SDF_POINTS, 3), generator=gen, device=dev) * (
+        bound[:, 1] - bound[:, 0])
+    y = torch.linalg.vector_norm(x - bound.mean(1), dim=1, keepdim=True) - 2.0
+    shapes = [(21, 18, 7), (105, 88, 31)]
+    return bound, shapes, x, y, lambda f: mlp_decode(decoder, f)
+
+
+def par_scene_stack(dev, path=None):
+    """(b) 5 and (c): train_decoder's four scenes and their stack, from
+    ``path`` when given."""
+    from miso_tpu_torch.parallel.pretrain import build_scene_stack
+    from miso_tpu_torch.train.checkpoint import load_pytree
+    from miso_tpu_torch.training.train_decoder import MODEL_CFG, scene_datasets
+    datasets = scene_datasets(trunc_dist=PRETRAIN_TRUNC)
+    stack = build_scene_stack(MODEL_CFG, [ds.bound for ds in datasets],
+                              torch.Generator().manual_seed(0), device=dev)
+    if path is not None:
+        with torch.no_grad():
+            load_pytree(path, like=stack.params)
+    return datasets, stack.params
+
+
+def par_scene_steps(params, datasets, mesh=None):
+    from miso_tpu_torch.models.grid_atlas import grid_atlas_mask
+    from miso_tpu_torch.parallel.pretrain import (scene_parallel_decoder_step,
+                                                  shard_scene_stack, stack_scene_batches)
+    from miso_tpu_torch.train.optim import masked_adam_init
+    if mesh is not None:
+        params = shard_scene_stack(params, mesh)
+    mask = grid_atlas_mask(params, features=True, stability=True, decoder=True,
+                           anchor_first_submap=False)
+    opt = masked_adam_init(params)
+    step = scene_parallel_decoder_step(trunc_dist=PRETRAIN_TRUNC)
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=params.device).manual_seed(1)
+    losses, ms = [], []
+    for _ in range(PAR_SCENE_STEPS):
+        b = stack_scene_batches([ds.sample(rng) for ds in datasets], mesh, device=params.device)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        params, opt, tl = step(params, opt, b, gen, mask, PAR_SCENE_LR)
+        e.record()
+        torch.cuda.synchronize()
+        losses.append(float(tl))
+        ms.append(s.elapsed_time(e))
+    return params, losses, ms
+
+
+def parallel_rank_main(rank: int, work: str) -> int:
+    """One of (b)'s two ranks: gloo over ``cuda:0``, which both share.  Runs
+    the five cases from the parent's files, prints its line and writes its
+    results under ``work``."""
+    from miso_tpu_torch.parallel import distributed
+    from miso_tpu_torch.parallel.sharding import make_mesh
+    from miso_tpu_torch.parallel.spatial import (shard_grid_spatial, sharded_grid_interpolate,
+                                                 sharded_sdf_train_step)
+    from miso_tpu_torch.train.checkpoint import load_pytree, save_pytree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.initialize(timeout_s=PAR_TIMEOUT_S, backend="gloo", device="cuda:0")
+    counters = kernel_counters()
+    mesh = make_mesh(2, ("data",))
+    out = {"rank": rank}
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    # 1. the data-parallel step: this rank's half of (a)'s batches.
+    model = par_dp_model(dev, os.path.join(work, "dp_model.npz"))
+    out["dp_losses"], out["dp_step_ms"] = par_dp_steps(
+        model, mesh, mapping_batches(2 * PAR_RANK_POINTS, PAR_STEPS, dev))
+    save_pytree(os.path.join(work, f"dp_b{rank}.npz"),
+                {k: v.detach() for k, v in model.named_parameters()})
+    # 2. the pair-sharded hierarchical alignment.
+    with open(os.path.join(work, "align.json")) as f:
+        spec = json.load(f)
+    atlas = par_align_atlas(spec, dev, os.path.join(work, "align_atlas.npz"))
+    t1 = time.perf_counter()
+    rot, trans = par_align(atlas, mesh)
+    out["align_s"] = time.perf_counter() - t1
+    out["align_rot"], out["align_trans"] = rot.tolist(), trans.tolist()
+    # 3. the spatial query on 2 x-slabs of the ScanNet fine level.
+    grids = make_mesh(2, ("grid",))
+    sp = torch.load(os.path.join(work, "spatial.pt"), map_location=dev)
+    slab, X = shard_grid_spatial(sp["grid"], grids)
+    slab.requires_grad_()
+    x = sp["x"].clone().requires_grad_()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    f = sharded_grid_interpolate(slab, x, sp["bound"], X, grids)
+    g_slab, g_x = torch.autograd.grad(f, [slab, x], sp["cot"])
+    torch.cuda.synchronize()
+    out["spatial_ms"] = 1e3 * (time.perf_counter() - t1)
+    S = slab.shape[0]
+    ref_rows = torch.zeros_like(g_slab)
+    n = max(min(X - rank * S, S), 0)
+    ref_rows[:n] = sp["grad_grid"][rank * S:rank * S + n]
+    out["spatial_value_err"] = float(torch.max(torch.abs(f - sp["values"])))
+    out["spatial_grid_grad_err"] = _rel_err(g_slab, ref_rows)
+    out["spatial_points_grad_err"] = _rel_err(g_x, sp["grad_x"])
+    # 4. the sharded SDF train step.
+    bound, shapes, xs, y, decode = par_sdf_case(dev)
+    slabs, logical = [], []
+    for shape in shapes:
+        s_, l_ = shard_grid_spatial(torch.zeros(shape + (4,), device=dev), grids)
+        slabs.append(s_)
+        logical.append(l_)
+    step = sharded_sdf_train_step(decode, grids, lr=1e-2)
+    opt, losses = None, []
+    for _ in range(PAR_SDF_STEPS):
+        slabs, opt, l_ = step(slabs, opt, logical, bound, xs, y, torch.ones_like(y))
+        losses.append(float(l_))
+    out["sdf_losses"] = losses
+    # 5. scene-parallel pretraining: 4 scenes, 2 a rank.
+    scenes = make_mesh(2, ("scene",))
+    datasets, params = par_scene_stack(dev, os.path.join(work, "scene_stack.npz"))
+    params, out["scene_losses"], out["scene_step_ms"] = par_scene_steps(params, datasets,
+                                                                        scenes)
+    save_pytree(os.path.join(work, f"scene_b{rank}.npz"),
+                [t.detach() for pair in params.decoder for t in pair])
+    torch.cuda.synchronize()
+    out["launches"] = _read_counts(counters)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"RANK {rank} " + json.dumps(out), flush=True)
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def par_two_ranks(work, card):
+    """(b): two ranks sharing the card over gloo, from the parent's files;
+    each held to the unsharded result, each launching the interp, slot-id
+    and decode kernels."""
+    from miso_tpu_torch.train.checkpoint import load_pytree, save_pytree
+    dev = torch.device("cuda")
+    atlas, spec = par_align_atlas(None, dev)
+    save_pytree(os.path.join(work, "align_atlas.npz"), atlas.params)
+    with open(os.path.join(work, "align.json"), "w") as f:
+        json.dump(spec, f)
+    torch.save(par_spatial_inputs(dev), os.path.join(work, "spatial.pt"))
+    datasets, stack = par_scene_stack(dev)
+    save_pytree(os.path.join(work, "scene_stack.npz"), stack)
+    torch.cuda.synchronize()
+    procs, outs = [], []
+    t0 = time.perf_counter()
+    for rank in range(2):
+        env = dict(os.environ, MISO_COORDINATOR=f"file://{os.path.join(work, 'store_b')}",
+                   MISO_NUM_PROCESSES="2", MISO_PROCESS_ID=str(rank),
+                   GLOO_SOCKET_IFNAME=os.environ.get("GLOO_SOCKET_IFNAME", "lo"))
+        procs.append(subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                                       "--parallel-rank", str(rank), work], env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    try:
+        # The references while the ranks run: the unsharded alignment and the
+        # one-rank scene steps from the same files.
+        ref_rot, ref_trans = par_align(par_align_atlas(spec, dev,
+                                                       os.path.join(work, "align_atlas.npz")))
+        _, stack1 = par_scene_stack(dev, os.path.join(work, "scene_stack.npz"))
+        stack1, scene_losses, scene_ms = par_scene_steps(stack1, datasets)
+        deadline = time.perf_counter() + PAR_TIMEOUT_S
+        for p in procs:
+            outs.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1)))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    spawn_s = time.perf_counter() - t0
+    for rank, (p, (so, se)) in enumerate(zip(procs, outs)):
+        for line in so.splitlines():
+            if line.startswith("RANK"):
+                log(f"  {line}")
+        check(p.returncode == 0, f"(b) rank {rank} exited {p.returncode}:\n{se[-3000:]}")
+    ranks = []
+    for rank in range(2):
+        with open(os.path.join(work, f"rank{rank}.json")) as f:
+            ranks.append(json.load(f))
+    a = load_pytree(os.path.join(work, "dp_a.npz"), like={
+        k: v.detach() for k, v in par_dp_model(dev).named_parameters()})
+    with open(os.path.join(work, "dp_a_losses.json")) as f:
+        a_losses = json.load(f)
+    ref_dec = [t.detach() for pair in stack1.decoder for t in pair]
+    report = {"spawn_to_result_s": spawn_s, "ranks": ranks,
+              "scene_one_rank_losses": scene_losses, "scene_one_rank_step_ms": scene_ms}
+    for r in ranks:
+        rank = r["rank"]
+        b = load_pytree(os.path.join(work, f"dp_b{rank}.npz"), like={
+            k: torch.empty_like(v) for k, v in a.items()})
+        dp_errs = _param_errs(b, a)
+        dp_rel = max(abs(x - y) / abs(y) for x, y in zip(r["dp_losses"], a_losses))
+        rot, trans = torch.tensor(r["align_rot"]), torch.tensor(r["align_trans"])
+        align_ok = (torch.allclose(rot, ref_rot, **PAR_POSE_TOL)
+                    and torch.allclose(trans, ref_trans, **PAR_POSE_TOL))
+        align_err = max(float(torch.max(torch.abs(rot - ref_rot))),
+                        float(torch.max(torch.abs(trans - ref_trans))))
+        dec = load_pytree(os.path.join(work, f"scene_b{rank}.npz"),
+                          like=[torch.empty_like(t) for t in ref_dec])
+        scene_err = max(_rel_err(d, t) for d, t in zip(dec, ref_dec))
+        scene_rel = max(abs(x - y) / abs(y) for x, y in zip(r["scene_losses"], scene_losses))
+        r.update(dp_param_errs=dp_errs, dp_loss_rel=dp_rel, align_max_abs=align_err,
+                 scene_decoder_err=scene_err, scene_loss_rel=scene_rel)
+        log(f"  (b) rank {rank} ({card}, two ranks on one card): data-parallel "
+            f"{' '.join(f'{v:.3f}' for v in r['dp_step_ms'])} ms a step, losses rel "
+            f"{dp_rel:.2e} to (a), features / decoder {dp_errs['features']:.2e} / "
+            f"{dp_errs['decoder']:.2e}; alignment {r['align_s']:.2f} s, poses off by "
+            f"{align_err:.2e}; spatial {r['spatial_ms']:.3f} ms, values "
+            f"{r['spatial_value_err']:.2e}, table / points gradients "
+            f"{r['spatial_grid_grad_err']:.2e} / {r['spatial_points_grad_err']:.2e}; sdf loss "
+            f"{r['sdf_losses'][0]:.4f} -> {r['sdf_losses'][-1]:.4f}; scenes "
+            f"{' '.join(f'{v:.2f}' for v in r['scene_step_ms'])} ms a step, decoder "
+            f"{scene_err:.2e}, losses rel {scene_rel:.2e}; {r['seconds']:.1f} s")
+        check(dp_rel <= PAR_LOSS_RTOL and max(dp_errs.values()) <= PAR_OF_MAX,
+              f"(b) rank {rank}: data-parallel off (a): losses {dp_rel}, parameters {dp_errs}")
+        check(align_ok, f"(b) rank {rank}: poses {r['align_rot']} {r['align_trans']} against "
+              f"{ref_rot.tolist()} {ref_trans.tolist()}")
+        check(r["spatial_value_err"] <= PAR_VALUE_ATOL
+              and r["spatial_grid_grad_err"] <= PAR_OF_MAX
+              and r["spatial_points_grad_err"] <= PAR_OF_MAX,
+              f"(b) rank {rank}: the spatial query off the unsharded kernel")
+        check(all(np.isfinite(r["sdf_losses"])) and r["sdf_losses"][-1] < r["sdf_losses"][0],
+              f"(b) rank {rank}: the sharded SDF step's loss did not fall: {r['sdf_losses']}")
+        check(scene_err <= PAR_OF_MAX and scene_rel <= PAR_LOSS_RTOL,
+              f"(b) rank {rank}: scene-parallel decoder off by {scene_err}, losses {scene_rel}")
+        for name in PAR_RANK_KERNELS:
+            check(r["launches"][name] > 0, f"(b) rank {rank}: {name} was not launched")
+    log(f"  (b) spawn to result {spawn_s:.1f} s; one-rank scene steps "
+        f"{' '.join(f'{v:.2f}' for v in scene_ms)} ms")
+    return report
+
+
+def pretrain_heldout(datasets):
+    """Per scene (coords, sdf) of the valid samples of a held-out Sdf3D
+    (seed 100 + s), as scripts/jax_train_decoder.py makes them."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    out = []
+    for s, ds in enumerate(datasets):
+        h = Sdf3D(ds.mesh, batch_size=PRETRAIN_HELDOUT, total_samples=PRETRAIN_HELDOUT,
+                  trunc_dist=PRETRAIN_TRUNC, seed=100 + s)
+        keep = h.sdf_valid[:, 0] == 1
+        out.append((h.coords[keep], h.sdfs[keep]))
+    return out
+
+
+def pretrain_path(argv, field_of, held, jax_mae, jax_losses, counters, label):
+    """train_decoder's command line in this process: its launches, seconds,
+    stage losses and per-scene MAE against the JAX CPU run's."""
+    from miso_tpu_torch.training import train_decoder
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    _zero_counts(counters)
+    t0 = time.perf_counter()
+    res = train_decoder.run(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_counts(counters)
+    field = field_of(res)
+    with torch.no_grad():
+        mae = [float(torch.mean(torch.abs(field(s, torch.as_tensor(c, device=dev))
+                                          - torch.as_tensor(d, device=dev))))
+               for s, (c, d) in enumerate(held)]
+    log(f"  (c) train_decoder, {label} path: {seconds:.1f} s wall, training "
+        f"{res['seconds']:.1f} s; stage losses {res['stage_losses']} (JAX CPU {jax_losses}); "
+        f"per-scene MAE {[round(m, 5) for m in mae]} (JAX CPU {jax_mae}); launches {launches}")
+    for s, (m, j) in enumerate(zip(mae, jax_mae)):
+        check(abs(m - j) <= PRETRAIN_MAE_MARGIN * j,
+              f"(c) {label}: scene {s} MAE {m:.5f} not within {PRETRAIN_MAE_MARGIN:.0%} of "
+              f"the JAX CPU run's {j:.5f}")
+    for name in ("interp_slot" if label == "parallel" else "interp", "decode"):
+        check(launches[name] > 0, f"(c) {label}: {name} was not launched")
+    return dict(seconds=seconds, train_s=res["seconds"], stage_losses=res["stage_losses"],
+                mae=mae, launches=launches, path=res["path"])
+
+
+def pretrained_grid_reading(path, mesh_report):
+    """The saved decoder as decoder.pretrained_model (fix: True) in a fresh
+    GridNet on phase 4's scene, PRETRAIN_GRID_EPOCHS epochs of grid
+    training, the 192^3 mesh's F-score beside phase 4's (a reading)."""
+    from miso_tpu_torch.datasets.sdf_3d import Sdf3D
+    from miso_tpu_torch.datasets.shapes import room_scene
+    from miso_tpu_torch.losses.miso import make_loss
+    from miso_tpu_torch.losses.sdf import tsdf_loss_3d
+    from miso_tpu_torch.models.grid_net import create_grid_net
+    from miso_tpu_torch.native import TriangleMesh
+    from miso_tpu_torch.train.trainer import GridTrainer
+    from miso_tpu_torch.utils.eval import mesh_reconstruction_metrics
+    from miso_tpu_torch.utils.sdf import save_mesh
+    scene = TriangleMesh(*room_scene(4.0))
+    ds = Sdf3D(scene, batch_size=MESH_BATCH, total_samples=MESH_SAMPLES, trunc_dist=0.3)
+    cfg = mesh_model_cfg(ds.bound.tolist())
+    cfg["decoder"] = dict(cfg["decoder"], pretrained_model=path, fix=True)
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(0))
+    t0 = time.perf_counter()
+    model = GridTrainer(dict(MESH_TRAIN, epochs=PRETRAIN_GRID_EPOCHS), model,
+                        make_loss(tsdf_loss_3d, **MESH_LOSS), ds).train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    metrics = mesh_reconstruction_metrics(save_mesh(model, model.bound, None,
+                                                    resolution=MESH_RESOLUTION),
+                                          scene, n_points=MESH_METRIC_POINTS)
+    log(f"  (c) pretrained decoder (fixed) on phase 4's scene, {PRETRAIN_GRID_EPOCHS} epochs "
+        f"in {train_s:.2f} s: F-score {metrics['F-score (%)']:.2f} %, Chamfer_L1 "
+        f"{metrics['Chamfer_L1 (cm)']:.3f} cm (phase 4, a free decoder, "
+        f"{MESH_TRAIN['epochs']} epochs: {mesh_report['metrics']['F-score (%)']:.2f} %, "
+        f"{mesh_report['metrics']['Chamfer_L1 (cm)']:.3f} cm); a reading, not a gate")
+    return dict(epochs=PRETRAIN_GRID_EPOCHS, train_s=train_s, metrics=metrics)
+
+
+def phase_parallel(card, mesh_report):
+    """Phase 11: (a) one NCCL rank, (b) two gloo ranks sharing the card, (c)
+    train_decoder --synthetic at its defaults, both paths, and the saved
+    decoder on phase 4's scene."""
+    import tempfile
+    counters = kernel_counters()
+    with tempfile.TemporaryDirectory(prefix="miso_parallel_") as work:
+        one = par_one_rank(work, counters)
+        with open(os.path.join(work, "dp_a_losses.json"), "w") as f:
+            json.dump(one["losses"], f)
+        two = par_two_ranks(work, card)
+        from miso_tpu_torch.training.train_decoder import scene_datasets
+        held = pretrain_heldout(scene_datasets(trunc_dist=PRETRAIN_TRUNC))
+        par = pretrain_path(["--synthetic", "--parallel", "--save_dir", work],
+                            lambda res: res["params"].forward_submap, held,
+                            JAX_TRAIN_DECODER_PARALLEL_MAE, JAX_TRAIN_DECODER_PARALLEL_LOSSES,
+                            counters, "parallel")
+        rr = pretrain_path(["--synthetic", "--save_dir", work, "--name", "decoder_round_robin"],
+                           lambda res: (lambda s, x: res["grids"][s](x)), held,
+                           JAX_TRAIN_DECODER_ROUND_ROBIN_MAE,
+                           JAX_TRAIN_DECODER_ROUND_ROBIN_LOSSES, counters, "round_robin")
+        reading = pretrained_grid_reading(par["path"], mesh_report)
+    return dict(one_rank=one, two_ranks=two, pretrain_parallel=par, pretrain_round_robin=rr,
+                pretrained_on_phase4=reading,
+                launches=[one["launches"], par["launches"], rr["launches"]])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script runs "
@@ -4589,6 +5161,12 @@ def main() -> int:
     apps_report["seconds"] = time.perf_counter() - t0
     apps_report["kernel_times"] = bf16_times
 
+    log("phase 11: parallel/ on torch.distributed (one NCCL rank; two gloo ranks sharing "
+        "the card) and decoder pretraining (training/train_decoder.py --synthetic)")
+    t0 = time.perf_counter()
+    parallel_report = phase_parallel(card, mesh_report)
+    parallel_report["seconds"] = time.perf_counter() - t0
+
     log("report")
     print(json.dumps({"card": card, "build_s": build_s, "max_abs_err": {**errs, **bf16_errs},
                       "fused_kernel": times, "interp_kernels": interp_times,
@@ -4597,7 +5175,8 @@ def main() -> int:
                       "main_path_fused": fused_report, "mesh_path": mesh_report,
                       "slam_path": slam_report, "quad_path": quad_report,
                       "align_path": align_report, "encode_path": encode_report,
-                      "alt_models": alt_report, "bf16_and_apps": apps_report}), flush=True)
+                      "alt_models": alt_report, "bf16_and_apps": apps_report,
+                      "parallel": parallel_report}), flush=True)
 
     online, quad = slam_report["online"], quad_report
     path_launches = [main_report["launches"], mesh_report["train_launches"],
@@ -4610,7 +5189,7 @@ def main() -> int:
                      align_report["launches"],
                      *(r["launches"] for r in align_report["baselines"].values()),
                      *encode_report["launches"], *alt_report["launches"],
-                     *apps_report["launches"]]
+                     *apps_report["launches"], *parallel_report["launches"]]
 
     def launches(name):
         """The launches on the paths that run the kernel: phase 3's
@@ -4620,7 +5199,10 @@ def main() -> int:
         phase 8's encoder pretraining, one-shot prediction, optimize runs,
         in-system runs and quad run, phase 9's training and lattices, and
         phase 10's: bf16 training, the demo CLIs, the bf16 SLAM run with its
-        live view, alignment and mesh, and phase 6's bf16 fused mesh."""
+        live view, alignment and mesh, and phase 6's bf16 fused mesh, and
+        phase 11's in this process: the one-rank data-parallel steps and both
+        paths of train_decoder (the two ranks' launches are on their own
+        lines)."""
         return sum(c[name] for c in path_launches)
 
     def entry(name, source, replaces, launches, err, t):
@@ -4764,4 +5346,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--parallel-rank":
+        sys.path.insert(0, ROOT)
+        sys.exit(parallel_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

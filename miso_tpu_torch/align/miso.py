@@ -29,10 +29,15 @@ Randomness: a pair's subsample is drawn from a ``torch.Generator`` seeded by
 (seed, src, dst) (:class:`PairGenerators`), fresh at every iteration: the
 JAX package's distribution, not its bits.
 
+The pair axis may be sharded over the ranks of a mesh
+(``align_multiple_submaps_hierarchical(mesh=, pair_axis=)``,
+``parallel/sharding.py::shard_pair_ctx``): each rank evaluates its rows of
+the padded pair batch, and the pair losses and the poses' gradient are
+summed over the ranks (pair losses add), which gives the unsharded result.
+
 Not ported, and raising where a call asks for them: the scanned solve, its
 segments, the solve and loss caches and ``aot_only`` (TPU dispatch and
-compile means, with no counterpart); the ``mesh``/``pair_axis`` sharding
-(ROADMAP Queue 1 item 7).
+compile means, with no counterpart).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from miso_tpu_torch.losses.common import gm_weighted_sq, info_nce_loss
 from miso_tpu_torch.models.base import relative_param_change
 from miso_tpu_torch.models.grid_atlas import GridAtlas, GridAtlasParams, grid_atlas_mask
 from miso_tpu_torch.ops import se3
+from miso_tpu_torch.parallel.sharding import shard_pair_ctx
 from miso_tpu_torch.train.optim import masked_adam_init
 from miso_tpu_torch.train.trainer import make_train_step
 from miso_tpu_torch.utils.profiling import synchronize
@@ -467,7 +473,7 @@ def generic_align_multiple_submaps(
         rel_change_thresh=0.0, submap_pairs: Optional[Sequence[Tuple[int, int]]] = None,
         check_intersection=True, pose_reg_weight=0.0, pose_thresh_rad=1.0,
         pose_thresh_m=1.0, verbose=False, save_iterations=False, seed=0, loss_ctx=None,
-        batched_loss=False, aot_only=False):
+        batched_loss=False, aot_only=False, pair_axis=None):
     """Masked Adam over every submap's pose correction, submap 0 anchored
     and spare slots frozen, for ``num_iters + 1`` steps (the JAX package's
     count), stopping early once the relative change of the poses falls
@@ -480,6 +486,11 @@ def generic_align_multiple_submaps(
     non-finite total skips the step (the NaN guard).  Writes the poses into
     the atlas; returns timings and, with ``save_iterations``, the (S, 4, 4)
     submap poses before each step.
+
+    ``pair_axis`` (a ``parallel/sharding.py::Axis``, batched losses only):
+    ``loss_ctx`` holds this rank's rows of the pair batch; each term of the
+    pair loss is summed over the axis, and the poses it reads pass the
+    axis's ``pvary``, so their gradient is summed with it.
     """
     if aot_only:
         raise NotImplementedError("aot_only compiles the JAX package's scanned solve without "
@@ -508,7 +519,11 @@ def generic_align_multiple_submaps(
     def align_loss(pose, batch, key):
         p = params.replace(**pose)
         loss_dict = {}
-        if batched_loss:
+        if batched_loss and pair_axis is not None:
+            pv = params.replace(**{k: pair_axis.pvary(v) for k, v in pose.items()})
+            loss_dict.update({k: pair_axis.psum(v)
+                              for k, v in pair_loss_fn(pv, gens, loss_ctx).items()})
+        elif batched_loss:
             loss_dict.update(pair_loss_fn(p, gens, loss_ctx))
         else:
             for s, d in submap_pairs:
@@ -605,11 +620,14 @@ def align_multiple_submaps_hierarchical(
     it raises ``ValueError`` once the latent levels are done, as the JAX
     package does.  ``max_align_points`` caps the alignment
     coordinates per (submap, level) (the Fuser's ``align.max_points``); None
-    takes every vertex over the norm threshold.  Returns per-stage timings.
+    takes every vertex over the norm threshold.
+
+    ``mesh`` (a ``parallel/sharding.py::Mesh``): the batched losses' pair
+    rows, padded to a multiple of the ``pair_axis`` size, are sharded over
+    it (``shard_pair_ctx``); the result is the unsharded one.  The unrolled
+    losses (``vmap_pairs=False``) do not shard, as in the JAX package.
+    Returns per-stage timings.
     """
-    if mesh is not None:
-        raise NotImplementedError("sharding the pair axis over a mesh is not ported yet "
-                                  "(ROADMAP Queue 1 item 7, parallel/)")
     if aot_only:
         raise NotImplementedError("aot_only compiles the JAX package's alignment without "
                                   "running it, a TPU compile means with no counterpart here")
@@ -635,6 +653,8 @@ def align_multiple_submaps_hierarchical(
     def pair_ctx(level_, loss_fn):
         t_c = time.perf_counter()
         ctx = pair_context(atlas, level_, pairs, rows)
+        if mesh is not None:
+            ctx = shard_pair_ctx(ctx, mesh, pair_axis)
         if isinstance(loss_fn, FlatPairLoss):
             ctx = loss_fn.precompute_src(atlas.params, ctx)
         synchronize(dev)
@@ -644,7 +664,8 @@ def align_multiple_submaps_hierarchical(
     common = dict(lr=lr, submap_pairs=pairs, check_intersection=False,
                   pose_reg_weight=pose_reg_weight, pose_thresh_rad=pose_thresh_rad,
                   pose_thresh_m=pose_thresh_m, verbose=verbose, save_iterations=save_iterations,
-                  batched_loss=vmap_pairs)
+                  batched_loss=vmap_pairs,
+                  pair_axis=mesh.axis(pair_axis) if mesh is not None and vmap_pairs else None)
     # The flat loss unless the loss needs each pair's own softmax (InfoNCE).
     make_batched = make_vmapped_pair_loss if align_loss == "InfoNCE" else make_flat_pair_loss
     for level in latent_levels:

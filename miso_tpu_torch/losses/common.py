@@ -4,20 +4,54 @@ Losses are functions ``(model, batch, key) -> dict[str, scalar tensor]`` over
 fixed-shape batches.  Validity is a multiplicative mask, never boolean
 indexing, and means run over the full batch including masked-out entries,
 as in the JAX package.
+
+Inside :func:`batch_axis` (the data-parallel steps of
+``parallel/sharding.py``) each rank holds its rows of the batch, and the
+helpers whose value is not a plain mean over rows take the global batch:
+a ratio of sums adds its numerator and denominator over the ranks, and
+the eikonal's uniform draw is made for the global batch, each rank keeping
+its rows.  Plain means are averaged over the ranks by the step itself.
 """
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
 from miso_tpu_torch.ops.diff import gradient3d
 
 
+_BATCH_AXIS = contextvars.ContextVar("batch_axis", default=None)
+
+
+@contextlib.contextmanager
+def batch_axis(axis):
+    """Within the block the batch is sharded over ``axis`` (a
+    ``parallel/sharding.py::Axis``; None: not sharded)."""
+    token = _BATCH_AXIS.set(axis if axis is not None and axis.group is not None else None)
+    try:
+        yield
+    finally:
+        _BATCH_AXIS.reset(token)
+
+
+def _ratio(num, den):
+    """num / max(den, 1), both sums over the batch: over the global batch
+    inside :func:`batch_axis` (summed over the ranks, the quotient handed
+    back to each rank's share of the loss)."""
+    ax = _BATCH_AXIS.get()
+    if ax is None:
+        return num / torch.clamp(den, min=1.0)
+    nd = ax.psum(torch.stack([num, den.to(num.dtype)]))
+    return ax.pvary(nd[0] / torch.clamp(nd[1], min=1.0))
+
+
 def masked_mean(values, mask=None):
     """Mean with an explicit valid-count denominator (for subset means)."""
     if mask is None:
         return torch.mean(values)
-    s = torch.sum(values * mask)
-    return s / torch.clamp(torch.sum(mask) * (values.numel() / mask.numel()), min=1.0)
+    return _ratio(torch.sum(values * mask), torch.sum(mask) * (values.numel() / mask.numel()))
 
 
 def regression_loss(pred, targ, valid_mask=None, sample_weights=None,
@@ -83,7 +117,7 @@ def eikonal_loss_at(model_fn, coords, select_mask=None,
     c = (torch.linalg.vector_norm(g, dim=-1, keepdim=True) - 1.0) ** 2
     if select_mask is None:
         return torch.mean(c)
-    return torch.sum(c * select_mask) / torch.clamp(torch.sum(select_mask), min=1.0)
+    return _ratio(torch.sum(c * select_mask), torch.sum(select_mask))
 
 
 def eikonal_loss_uniform(model_fn, bound, n, generator=None, grad_method="autograd",
@@ -92,9 +126,16 @@ def eikonal_loss_uniform(model_fn, bound, n, generator=None, grad_method="autogr
 
     The points are drawn from ``generator`` (a ``torch.Generator`` on the
     bound's device, in place of the JAX key; the default generator when None),
-    so their stream differs from the JAX package's.
+    so their stream differs from the JAX package's.  Inside :func:`batch_axis`
+    ``n`` is this rank's share: the draw is made for the global batch and the
+    rank keeps its rows, the points of the unsharded draw.
     """
-    u = torch.rand((n, 3), generator=generator, dtype=bound.dtype, device=bound.device)
+    ax = _BATCH_AXIS.get()
+    if ax is None:
+        u = torch.rand((n, 3), generator=generator, dtype=bound.dtype, device=bound.device)
+    else:
+        u = torch.rand((n * ax.size, 3), generator=generator, dtype=bound.dtype,
+                       device=bound.device)[ax.index * n:(ax.index + 1) * n]
     coords = bound[:, 0] + u * (bound[:, 1] - bound[:, 0])
     return eikonal_loss_at(model_fn, coords, None, grad_method, finite_diff_eps)
 

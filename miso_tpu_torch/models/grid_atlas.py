@@ -75,6 +75,13 @@ class GridAtlasParams:
     stacked ones; queries loop over those only.
     """
 
+    # A shard of ``parallel/sharding.py::shard_atlas`` sets these: its slots
+    # are rows [slot_offset, slot_offset + capacity) of slot_total, and the
+    # world query sums over slot_axis.  None: the whole atlas.
+    slot_axis = None
+    slot_offset = 0
+    slot_total = None
+
     def __init__(self, features, stability, decoder, sub_rot_corr, sub_trans_corr,
                  Rws, tws, kf_rot_corr, kf_trans_corr, Rsk, tsk, bounds, sizes,
                  ignore_level, active, kf_to_submap, kf_to_local, *, num_submaps: int,
@@ -193,10 +200,25 @@ class GridAtlasParams:
         return se3.apply_pose_correction(self.Rsk, self.tsk, self.kf_rot_corr,
                                          self.kf_trans_corr)
 
+    def _every_slot_pose(self):
+        """Every slot's corrected pose: a shard's own rows placed among
+        zeros and summed over its slot axis (an all-gather whose gradient
+        reaches each owner's rows)."""
+        R, t = self.updated_submap_poses()
+        ax = self.slot_axis
+        if ax is None:
+            return R, t
+
+        def gather(x):
+            rest = self.slot_total - self.slot_offset - x.shape[0]
+            return ax.psum(torch.cat([x.new_zeros((self.slot_offset,) + x.shape[1:]), x,
+                                      x.new_zeros((rest,) + x.shape[1:])]))
+        return gather(R), gather(t)
+
     def updated_kf_poses_in_world(self):
         """(S*K, 3, 3), (S*K, 3): every global keyframe slot's world pose."""
         R_sk, t_sk = self.updated_kf_poses_in_submap()
-        R_ws, t_ws = self.updated_submap_poses()
+        R_ws, t_ws = self._every_slot_pose()
         sub = self.kf_to_submap.long()
         loc = self.kf_to_local.long()
         return _compose(R_ws[sub], t_ws[sub], R_sk[sub, loc], t_sk[sub, loc])
@@ -224,6 +246,9 @@ class GridAtlasParams:
         """(sum of weights (N,), masked average (N, L * C)) over the live
         slots of ``tables`` (per level (S, *pad, C))."""
         R_ws, t_ws = self.updated_submap_poses()
+        ax = self.slot_axis
+        if ax is not None:
+            x_world = ax.pvary(x_world)
         n = x_world.shape[0]
         width = sum(int(t.shape[-1]) for t in tables)
         acc = torch.zeros((n, width), dtype=x_world.dtype, device=x_world.device)
@@ -234,6 +259,9 @@ class GridAtlasParams:
             f = self._slot_levels(tables, s, xs, ignore_level, interpolate)
             acc = acc + m[:, None] * f
             sum_w = sum_w + m
+        if ax is not None:
+            both = ax.psum(torch.cat([acc, sum_w[:, None]], dim=1))
+            acc, sum_w = both[:, :width], both[:, width]
         sum_w = torch.where(sum_w == 0, torch.ones_like(sum_w), sum_w)
         return sum_w, acc / sum_w[:, None]
 

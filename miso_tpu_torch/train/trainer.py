@@ -59,15 +59,21 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
         loss_dict = loss_fn(model, batch, key)
         tl = total_loss(loss_dict)
         grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
-        grads = {k: torch.zeros_like(p) if g is None else torch.nan_to_num(g)
-                 for (k, p), g in zip(params.items(), grads)}
-        guard = torch.isfinite(tl).to(torch.float32)
-        eff_mask = {k: m * guard for k, m in mask.items()}
-        update(grads, opt_state, params, eff_mask, lr=lr)
+        guarded_update(update, params, grads, opt_state, mask, lr, tl)
         return (model, opt_state, tl.detach(),
                 {k: v.detach() for k, v in loss_dict.items()})
 
     return step
+
+
+def guarded_update(update, params, grads, opt_state, mask, lr, total):
+    """The step's update of ``params`` (name -> tensor) from ``grads`` (in
+    the same order; None for an unused tensor): non-finite gradient entries
+    made finite, the mask zeroed where ``total`` is not finite."""
+    grads = {k: torch.zeros_like(p) if g is None else torch.nan_to_num(g)
+             for (k, p), g in zip(params.items(), grads)}
+    guard = torch.isfinite(total).to(torch.float32)
+    update(grads, opt_state, params, {k: m * guard for k, m in mask.items()}, lr=lr)
 
 
 def pool_batch_rows(u: torch.Tensor, sel: torch.Tensor, n_rows_sel: torch.Tensor,

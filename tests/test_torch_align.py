@@ -437,8 +437,7 @@ def test_alignment_without_pairs_is_a_no_op():
 
 def test_unported_alignment_options_raise(atlases):
     _, ta = atlases
-    with pytest.raises(NotImplementedError, match="item 7"):
-        t_align.align_multiple_submaps_hierarchical(ta, mesh=object())
+    # The mesh's pair-axis sharding is ported (tests/test_torch_parallel.py);
     # InfoNCE is ported; the JAX package's refusals stay: the flat loss and the
     # SDF stage take no InfoNCE.
     with pytest.raises(ValueError, match="make_vmapped_pair_loss"):

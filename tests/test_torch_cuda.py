@@ -1167,3 +1167,67 @@ def test_bf16_grid_net_frozen_query_and_eikonal(dev):
     d_fine, = torch.autograd.grad(eik, model.features[1])
     assert _GridInterp.recomputes == recomputes + 2
     assert d_fine.dtype == torch.bfloat16 and bool(torch.isfinite(d_fine.float()).all())
+
+
+def test_data_parallel_step_one_nccl_rank_matches_make_train_step(dev, tmp_path):
+    """chip_smoke.py phase 11 (a) at small widths: one NCCL rank (a file
+    rendezvous), data_parallel_train_step against make_train_step on the
+    same batches, 3 steps; the interp, interp grad and decode kernels
+    launched.  Losses 1e-5, parameters 1e-4 of the largest entry."""
+    from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+    from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
+    from miso_tpu_torch.ops.fused_decode import mlp_decode_cuda
+    from miso_tpu_torch.ops.tiled_interp import grid_interpolate_cuda, grid_interpolate_grad_cuda
+    from miso_tpu_torch.parallel import distributed
+    from miso_tpu_torch.parallel.sharding import data_parallel_train_step, make_mesh, shard_batch
+    from miso_tpu_torch.train.optim import masked_adam_init
+    from miso_tpu_torch.train.trainer import make_train_step
+
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 1e-2,
+                    "bound": [[-1.0, 1.0], [-1.0, 1.2], [-0.8, 1.0]], "base_cell_size": 0.5,
+                    "per_level_scale": 4.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": False, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 8}}
+    loss_fn = make_loss(mapping_loss, loss_type="L2", weight_sdf=1.0, weight_eik=0.1,
+                        weight_fs=0.1, trunc_dist=0.15)
+    rng = np.random.default_rng(0)
+    n = 20000
+    batches = [{"coords_frame": torch.as_tensor(rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32),
+                                                device=dev),
+                "sample_frame_ids": torch.as_tensor(rng.integers(0, 8, n).astype(np.int32),
+                                                    device=dev),
+                "weights": torch.ones((n, 1), device=dev),
+                "sdf": torch.as_tensor(rng.uniform(-0.2, 0.2, (n, 1)).astype(np.float32),
+                                       device=dev),
+                "sdf_valid": torch.ones((n, 1), device=dev),
+                "sdf_signs": torch.zeros((n, 1), device=dev)} for _ in range(3)]
+    ref = create_grid_net(cfg, generator=torch.Generator().manual_seed(0), device=dev)
+    model = copy.deepcopy(ref)
+    step = make_train_step(loss_fn)
+    mask = grid_net_mask(ref, level=2, pose=False)
+    opt = masked_adam_init(ref)
+    ref_losses = [float(step(ref, opt, b, None, mask, 1e-3)[2]) for b in batches]
+    distributed.initialize(f"file://{tmp_path / 'store'}", 1, 0, backend="nccl",
+                           device="cuda:0", timeout_s=120)
+    try:
+        mesh = make_mesh(1, ("data",))
+        dp = data_parallel_train_step(loss_fn, mesh)
+        opt = masked_adam_init(model)
+        counts = [grid_interpolate_cuda.launches, grid_interpolate_grad_cuda.launches,
+                  mlp_decode_cuda.launches]
+        losses = [float(dp(model, opt, shard_batch(b, mesh), None, mask, 1e-3)[2])
+                  for b in batches]
+        launched = [grid_interpolate_cuda.launches, grid_interpolate_grad_cuda.launches,
+                    mlp_decode_cuda.launches]
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(losses, ref_losses, rtol=1e-5)
+    got, want = dict(model.named_parameters()), dict(ref.named_parameters())
+    for group in ("features", "decoder"):
+        keys = [k for k in want if k.startswith(group)]
+        scale = max(float(want[k].abs().max()) for k in keys)
+        for k in keys:
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-4 * scale)
+    assert all(b > a for a, b in zip(counts, launched)), (counts, launched)
