@@ -39,6 +39,7 @@ import torch
 
 from miso_tpu_torch.ops.interp import grid_decode, multi_level_interpolate
 from miso_tpu_torch.ops.mlp import mlp_apply
+from miso_tpu_torch.utils.profiling import span
 
 # Mirrors of the kernels' compile-time maxima (csrc/mtt_mma.cuh), checked
 # against each library when it is loaded.
@@ -299,13 +300,14 @@ def fused_interp_decode_cuda(grids: Sequence[torch.Tensor], x: torch.Tensor,
     bias, widths above the kernel's maxima and non-contiguous inputs.  No
     autograd: see :func:`fused_interp_decode`.
     """
-    dims = _check_args(grids, x, bound, decoder_params, sizes, ignore_level)
-    if not x.is_cuda:
-        raise ValueError(f"fused_interp_decode_cuda needs CUDA tensors, got {x.device}")
-    lib = _library()
-    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
-    a = pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims)
-    _launch(lib, "mtt_fused_interp_decode", a, x.device, "fused_interp_decode")
+    with span("miso.launch.fused_interp_decode"):
+        dims = _check_args(grids, x, bound, decoder_params, sizes, ignore_level)
+        if not x.is_cuda:
+            raise ValueError(f"fused_interp_decode_cuda needs CUDA tensors, got {x.device}")
+        lib = _library()
+        out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+        a = pack_args(grids, x, bound, decoder_params, sizes, ignore_level, out, dims)
+        _launch(lib, "mtt_fused_interp_decode", a, x.device, "fused_interp_decode")
     fused_interp_decode_cuda.launches += 1
     return out
 
@@ -459,13 +461,14 @@ def mlp_decode_cuda(decoder_params, x: torch.Tensor) -> torch.Tensor:
     widths above the kernel's maxima and non-contiguous inputs.  No
     autograd: see :func:`mlp_decode`.
     """
-    a, dims = _decode_args(decoder_params, x)
-    if not x.is_cuda:
-        raise ValueError(f"mlp_decode_cuda needs CUDA tensors, got {x.device}")
-    lib = _library("mlp_decode")
-    out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
-    a.out = out.data_ptr()
-    _launch(lib, "mtt_mlp_decode", a, x.device, "mlp_decode")
+    with span("miso.launch.mlp_decode"):
+        a, dims = _decode_args(decoder_params, x)
+        if not x.is_cuda:
+            raise ValueError(f"mlp_decode_cuda needs CUDA tensors, got {x.device}")
+        lib = _library("mlp_decode")
+        out = torch.empty((x.shape[0], dims[-1]), dtype=torch.float32, device=x.device)
+        a.out = out.data_ptr()
+        _launch(lib, "mtt_mlp_decode", a, x.device, "mlp_decode")
     mlp_decode_cuda.launches += 1
     return out
 

@@ -77,6 +77,7 @@ from typing import Optional, Sequence
 import torch
 
 from miso_tpu_torch.ops import interp
+from miso_tpu_torch.utils.profiling import span
 
 
 class _InterpArgs(ctypes.Structure):
@@ -278,17 +279,18 @@ def grid_interpolate_cuda(grid: torch.Tensor, x: torch.Tensor, bound: torch.Tens
     rows are gathered where :func:`interp_forward_path` says.  No autograd:
     see :func:`grid_interpolate_dispatch`.
     """
-    _check(grid, x, bound, size)
-    out = torch.empty((x.shape[0], grid.shape[-1]), dtype=torch.float32,
-                      device=x.device)
-    a = _pack(grid, x, bound, size, out)
-    path = interp_forward_path(grid, x.shape[0], bool(a.vec4))
-    # Freed on return, while the kernels may still run: PyTorch's caching
-    # allocator hands the block out again only in this stream's order.
-    pairs = torch.empty(2 * grid.numel(), dtype=grid.dtype,
-                        device=x.device) if path == "pairs" else None
-    _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS[path],
-            None if pairs is None else pairs.data_ptr())
+    with span("miso.launch.grid_interp"):
+        _check(grid, x, bound, size)
+        out = torch.empty((x.shape[0], grid.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        a = _pack(grid, x, bound, size, out)
+        path = interp_forward_path(grid, x.shape[0], bool(a.vec4))
+        # Freed on return, while the kernels may still run: PyTorch's caching
+        # allocator hands the block out again only in this stream's order.
+        pairs = torch.empty(2 * grid.numel(), dtype=grid.dtype,
+                            device=x.device) if path == "pairs" else None
+        _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS[path],
+                None if pairs is None else pairs.data_ptr())
     grid_interpolate_cuda.launches += 1
     return out
 
@@ -327,22 +329,23 @@ def grid_interpolate_grad_cuda(grid: torch.Tensor, x: torch.Tensor,
     copies and makes no atomic adds (one count in ``.points_launches``), and
     returns (None, d_x).
     """
-    _check(grid, x, bound, size, g)
-    if not need_grid:
-        if not need_x:
-            raise ValueError("neither the grid's nor the points' gradient asked for")
-        d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-        _launch("mtt_grid_interp_points_grad", x.device,
-                _pack(grid, x, bound, size, None, g, d_x))
-        grid_interpolate_grad_cuda.points_launches += 1
-        return None, d_x
-    n_copies = interp_grad_copies(grid.shape[:3], grid.shape[-1], x.shape[0])
-    d_grid = torch.empty_like(grid)
-    d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-           if need_x else None)
-    copies, _partial = _grad_plan(grid, n_copies)
-    _launch("mtt_grid_interp_backward", x.device,
-            _pack(grid, x, bound, size, d_grid, g, d_x), copies)
+    with span("miso.launch.grid_interp_grad"):
+        _check(grid, x, bound, size, g)
+        if not need_grid:
+            if not need_x:
+                raise ValueError("neither the grid's nor the points' gradient asked for")
+            d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+            _launch("mtt_grid_interp_points_grad", x.device,
+                    _pack(grid, x, bound, size, None, g, d_x))
+            grid_interpolate_grad_cuda.points_launches += 1
+            return None, d_x
+        n_copies = interp_grad_copies(grid.shape[:3], grid.shape[-1], x.shape[0])
+        d_grid = torch.empty_like(grid)
+        d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+               if need_x else None)
+        copies, _partial = _grad_plan(grid, n_copies)
+        _launch("mtt_grid_interp_backward", x.device,
+                _pack(grid, x, bound, size, d_grid, g, d_x), copies)
     grid_interpolate_grad_cuda.launches += 1
     return d_grid, d_x
 
@@ -522,10 +525,12 @@ def grid_interpolate_per_point_cuda(stacked: torch.Tensor, sub_ids: torch.Tensor
     (S, 3, 2) bounds, (S, 3) int32 logical sizes -> (N, F).  One thread a
     point from the table in L2 (one count in ``.launches``).  No autograd:
     see :func:`grid_interpolate_per_point_dispatch`."""
-    _check_per_point(stacked, sub_ids, x, bounds, sizes)
-    out = torch.empty((x.shape[0], stacked.shape[-1]), dtype=torch.float32, device=x.device)
-    a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, out)
-    _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS["l2"], None)
+    with span("miso.launch.grid_interp_per_point"):
+        _check_per_point(stacked, sub_ids, x, bounds, sizes)
+        out = torch.empty((x.shape[0], stacked.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, out)
+        _launch("mtt_grid_interp_forward", x.device, a, FORWARD_PATHS["l2"], None)
     grid_interpolate_per_point_cuda.launches += 1
     return out
 
@@ -543,22 +548,24 @@ def grid_interpolate_per_point_grad_cuda(stacked, sub_ids, x, bounds, sizes, g,
     with its atomics spread over :func:`interp_grad_copies` of the stacked
     table (one count in ``.launches``); ``need_grid=False`` computes d_x
     alone, with no table gradient and no atomics (``.points_launches``)."""
-    _check_per_point(stacked, sub_ids, x, bounds, sizes, g)
-    if not need_grid:
-        if not need_x:
-            raise ValueError("neither the grid's nor the points' gradient asked for")
-        d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-        a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, None, g, d_x)
-        _launch("mtt_grid_interp_points_grad", x.device, a)
-        grid_interpolate_per_point_grad_cuda.points_launches += 1
-        return None, d_x
-    n_copies = interp_grad_copies(tuple(stacked.shape[:4]), stacked.shape[-1], x.shape[0])
-    d_grid = torch.empty_like(stacked)
-    d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
-           if need_x else None)
-    copies, _partial = _grad_plan(stacked, n_copies)
-    a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, d_grid, g, d_x)
-    _launch("mtt_grid_interp_backward", x.device, a, copies)
+    with span("miso.launch.grid_interp_per_point_grad"):
+        _check_per_point(stacked, sub_ids, x, bounds, sizes, g)
+        if not need_grid:
+            if not need_x:
+                raise ValueError("neither the grid's nor the points' gradient asked for")
+            d_x = torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+            a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, None, g, d_x)
+            _launch("mtt_grid_interp_points_grad", x.device, a)
+            grid_interpolate_per_point_grad_cuda.points_launches += 1
+            return None, d_x
+        n_copies = interp_grad_copies(tuple(stacked.shape[:4]), stacked.shape[-1],
+                                      x.shape[0])
+        d_grid = torch.empty_like(stacked)
+        d_x = (torch.empty((x.shape[0], 3), dtype=torch.float32, device=x.device)
+               if need_x else None)
+        copies, _partial = _grad_plan(stacked, n_copies)
+        a, _ids = _pack_per_point(stacked, sub_ids, x, bounds, sizes, d_grid, g, d_x)
+        _launch("mtt_grid_interp_backward", x.device, a, copies)
     grid_interpolate_per_point_grad_cuda.launches += 1
     return d_grid, d_x
 

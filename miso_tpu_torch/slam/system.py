@@ -15,9 +15,10 @@ a contiguous copy); its features are written back into the atlas at a
 boundary only (spawn, checkpoint, a visualizer mesh, the end of the run),
 its pose rows every frame.  With ``system.profile`` each frame's stages are
 timed by ``utils/profiling.py::StageProfiler``, synchronizing the card
-before the clock is read.  With an ``encoder`` and ``system.submap_init_mode:
-"encode"`` each new submap's features start from the encoder's one-shot
-prediction on its anchor keyframe's observations
+before the clock is read; with or without it, each stage opens the span
+``slam.<stage>`` for a recording profiler.  With an ``encoder`` and
+``system.submap_init_mode: "encode"`` each new submap's features start from
+the encoder's one-shot prediction on its anchor keyframe's observations
 (:meth:`System._encode_init_current_submap`), and its init burst runs
 ``mapping.init_iterations_encode`` iterations (default ``init_iterations //
 3``) instead of ``init_iterations``.
@@ -39,7 +40,7 @@ from miso_tpu_torch.ops import se3
 from miso_tpu_torch.slam.mapper import Mapper
 from miso_tpu_torch.slam.tracker import Tracker
 from miso_tpu_torch.slam.visualizer import Visualizer
-from miso_tpu_torch.utils.profiling import StageProfiler, synchronize
+from miso_tpu_torch.utils.profiling import StageProfiler, span, synchronize
 from miso_tpu_torch.utils.sdf import save_mesh
 
 
@@ -343,8 +344,11 @@ class System:
         prof = self.profiler
         dev = self.model.device
 
+        @contextlib.contextmanager
         def stage(name):
-            return prof.stage(name, sync=dev) if prof else contextlib.nullcontext()
+            with span("slam." + name), (prof.stage(name, sync=dev) if prof
+                                        else contextlib.nullcontext()):
+                yield
 
         if prof:
             prof.start_frame(self.current_kf_id() + 1)

@@ -32,6 +32,7 @@ from miso_tpu_torch.models.base import (masked_select_tree, named_tensors,
                                         relative_param_change, tree_full_mask)
 from miso_tpu_torch.train.optim import (masked_adam_init, masked_adam_update,
                                         masked_sgd_init, masked_sgd_update)
+from miso_tpu_torch.utils.profiling import span
 
 _UPDATES = {"adam": masked_adam_update, "sgd": masked_sgd_update}
 
@@ -49,19 +50,28 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     changes no parameter and no moment; non-finite gradient entries become
     finite (``nan_to_num``).  The guard runs on the device, without a host
     read of the loss.
+
+    A step opens the spans ``miso.step`` and, inside it in turn,
+    ``miso.step.loss``, ``miso.step.grad`` and ``miso.step.update``
+    (``utils/profiling.py::span``: marks for a recording profiler, nothing
+    otherwise).
     """
     if optimizer not in _UPDATES:
         raise ValueError(f"Invalid optimizer: {optimizer}")
     update = _UPDATES[optimizer]
 
     def step(model, opt_state, batch, key, mask, lr):
-        params = named_tensors(model)
-        loss_dict = loss_fn(model, batch, key)
-        tl = total_loss(loss_dict)
-        grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
-        guarded_update(update, params, grads, opt_state, mask, lr, tl)
-        return (model, opt_state, tl.detach(),
-                {k: v.detach() for k, v in loss_dict.items()})
+        with span("miso.step"):
+            params = named_tensors(model)
+            with span("miso.step.loss"):
+                loss_dict = loss_fn(model, batch, key)
+                tl = total_loss(loss_dict)
+            with span("miso.step.grad"):
+                grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
+            with span("miso.step.update"):
+                guarded_update(update, params, grads, opt_state, mask, lr, tl)
+            return (model, opt_state, tl.detach(),
+                    {k: v.detach() for k, v in loss_dict.items()})
 
     return step
 

@@ -1,9 +1,28 @@
 """Timing and profiling (port of ``miso_tpu/utils/profiling.py``).
 
-Wall and process timers that synchronize the card before reading the clock,
-the SLAM loop's per-frame stage breakdown, a ``torch.profiler`` trace
-context with the per-step kernel and operator tables read from it, and a
-CUDA-event timer for one callable.
+The program's spans (:func:`span`), the SLAM loop's per-frame stage
+breakdown, and a ``torch.profiler`` trace context with the per-step kernel
+and operator tables read from it.
+
+Spans.  ``span(name)`` marks a phase of the program for whatever profiler is
+recording: a ``torch.profiler.record_function``, which lands in the trace as
+a ``user_annotation`` event on the profiler's clock, beside the kernels,
+memsets and copies it launched.  With no profiler recording it returns one
+shared no-op context: one flag check, nothing allocated, formatted or
+recorded.  The names and the thread each opens on:
+
+  ``miso.step``, ``.loss``, ``.grad``, ``.update``
+      ``train/trainer.py::make_train_step``'s step, its loss, its
+      ``autograd.grad`` and its NaN-guarded optimizer update (caller's
+      thread).  A CUDA backward runs on PyTorch's autograd worker thread:
+      its kernels lie in ``miso.step.grad`` by time, not by scope.
+  ``miso.launch.<kernel>``
+      each kernel launcher of ``ops/tiled_interp.py`` and
+      ``ops/fused_decode.py``, at its ``.launches`` counter: the
+      launcher's checks, argument packing and launch (the thread that
+      calls it; the interp backward's on the autograd worker thread).
+  ``slam.<stage>``
+      ``slam/system.py::System.step``'s stages.
 """
 from __future__ import annotations
 
@@ -15,6 +34,16 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks ``name`` in the trace of a recording profiler,
+    and the shared no-op context when none records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def synchronize(target: Any = None):
@@ -31,27 +60,6 @@ def synchronize(target: Any = None):
             torch.cuda.synchronize(target)
         return
     torch.cuda.synchronize()
-
-
-class PerfTimer:
-    """check() returns (cpu_time, wall_time) in seconds since the last reset,
-    after synchronizing ``sync`` (as :func:`synchronize` takes it)."""
-
-    def __init__(self, activate: bool = True):
-        self.activate = activate
-        self.reset()
-
-    def reset(self):
-        self._cpu0 = time.process_time()
-        self._wall0 = time.perf_counter()
-
-    def check(self, sync: Any = None):
-        if not self.activate:
-            return 0.0, 0.0
-        if sync is not None:
-            synchronize(sync)
-        return (time.process_time() - self._cpu0,
-                time.perf_counter() - self._wall0)
 
 
 class StageProfiler:
@@ -134,13 +142,26 @@ def device_trace(log_dir: Optional[str] = None):
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def busy_us(intervals) -> float:
+    """The length of the union of (start, end) intervals: time in which at
+    least one of them ran, overlaps counted once."""
+    total, reach = 0.0, float("-inf")
+    for a, b in sorted(intervals):
+        if b > reach:
+            total += b - max(a, reach)
+            reach = b
+    return total
+
+
 def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
     """Time ``run(steps)`` unprofiled, then under :func:`device_trace`, and
     print the card's kernels and the aten operators by device time per step.
-    The idle share is the part of the unprofiled window in which no kernel
-    or copy ran.  Returns the step's wall ms (unprofiled and profiled),
-    device ms, idle share and its three largest kernels (name, device ms per
-    step, share of the device time)."""
+    The idle share is the part of the unprofiled window in which no kernel,
+    memset or copy ran: one minus the union of their intervals in the
+    profiled window (overlapping kernels counted once) over the unprofiled
+    window.  Returns the step's wall ms (unprofiled and profiled), device ms
+    (summed over kernels), busy ms (their union), idle share and its three
+    largest kernels (name, device ms per step, share of the device time)."""
     t0 = time.perf_counter()
     run(steps)
     synchronize()
@@ -152,16 +173,21 @@ def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     per_name = defaultdict(lambda: [0.0, 0])
+    intervals = []
     for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # A span's device-side copy (``gpu_user_annotation``) is no work.
+        if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation:
             rec = per_name[e.name]
             rec[0] += e.time_range.elapsed_us() / 1e3 / steps
             rec[1] += 1
+            intervals.append((e.time_range.start, e.time_range.end))
     device_ms = sum(v[0] for v in per_name.values())
-    idle = max(0.0, 1.0 - device_ms / plain_wall_ms)
+    busy_ms = busy_us(intervals) / 1e3 / steps
+    idle = max(0.0, 1.0 - busy_ms / plain_wall_ms)
     print(f"== {label}: {steps} steps; wall {plain_wall_ms:.3f} ms/step unprofiled, "
           f"{wall_ms:.3f} profiled (host clock); device {device_ms:.3f} ms/step "
-          f"summed over kernels; idle share {idle:.3f} of the unprofiled window")
+          f"summed over kernels, {busy_ms:.3f} busy; idle share {idle:.3f} of the "
+          f"unprofiled window")
     print(f"{'ms/step':>9} {'share':>6} {'calls/step':>10}  kernel")
     for name, (ms, calls) in sorted(per_name.items(), key=lambda kv: -kv[1][0])[:top]:
         print(f"{ms:9.4f} {ms / device_ms:6.3f} {calls / steps:10.1f}  {name[:110]}")
@@ -172,34 +198,6 @@ def breakdown(label: str, run, steps: int, top: int = 25) -> Dict:
               f"{e.key}")
     largest = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:3]
     return dict(wall_ms=plain_wall_ms, profiled_wall_ms=wall_ms, device_ms=device_ms,
-                idle_share=idle, steps=steps,
+                busy_ms=busy_ms, idle_share=idle, steps=steps,
                 top_kernels=[dict(name=name, ms=ms, share=ms / device_ms)
                              for name, (ms, _) in largest])
-
-
-def time_jitted(fn, *args, iters: int = 20, warmup: int = 2, **kwargs) -> Dict:
-    """Time ``fn(*args, **kwargs)`` call by call: CUDA events around each
-    call on the card, the synchronized host clock otherwise.  Returns
-    {'mean_ms', 'best_ms', 'iters'}."""
-    on_card = torch.cuda.is_available() and any(
-        isinstance(a, torch.Tensor) and a.is_cuda for a in (*args, *kwargs.values()))
-    for _ in range(warmup):
-        fn(*args, **kwargs)
-    times = []
-    if on_card:
-        torch.cuda.synchronize()
-        for _ in range(iters):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn(*args, **kwargs)
-            end.record()
-            end.synchronize()
-            times.append(start.elapsed_time(end))
-    else:
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            fn(*args, **kwargs)
-            times.append(1e3 * (time.perf_counter() - t0))
-    return {"mean_ms": float(sum(times) / len(times)), "best_ms": float(min(times)),
-            "iters": iters}

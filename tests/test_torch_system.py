@@ -19,6 +19,7 @@ and odometry) and atlases built from the same config.
   window that prints a step's kernel and operator tables.
 """
 import copy
+import json
 
 import jax
 import numpy as np
@@ -304,21 +305,29 @@ def test_stage_profiler_matches_jax(seqs):
     assert got["n_frames"] == ref["n_frames"] == 6
 
 
-def test_perf_timer_and_time_jitted():
-    """tests/test_utils_misc.py's check of the JAX timers, on the port's: the
-    same keys, the host clock for CPU tensors."""
-    t = t_prof.PerfTimer()
-    x = torch.ones((256, 256))
-    out = x @ x
-    cpu, wall = t.check(sync=out)
-    assert wall > 0 and cpu >= 0
-    assert t_prof.PerfTimer(activate=False).check(sync=out) == (0.0, 0.0)
-    stats = t_prof.time_jitted(lambda a: a @ a, x, iters=3, warmup=1)
-    ref = j_prof.time_jitted(jax.jit(lambda a: a @ a), jax.numpy.ones((256, 256)),
-                             iters=3, warmup=1)
-    assert stats.keys() == ref.keys()
-    assert stats["best_ms"] > 0 and stats["mean_ms"] >= stats["best_ms"]
-    assert stats["iters"] == 3
+@pytest.mark.parametrize("profiled", [False, True])
+def test_system_stages_are_spans(seqs, tmp_path, profiled):
+    """Under a CPU profiler, a tracked and mapped frame and then a spawn
+    open the ``slam.<stage>`` spans, with or without ``system.profile``; the
+    mapping burst's train steps lie inside ``slam.map``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = port_system(seqs, config(profile=profiled, submap_size=2))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        ts.step()
+        ts.step()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    spans = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in json.loads(path.read_text())["traceEvents"]
+             if e.get("cat") == "user_annotation"]
+    stages = [n for n, _, _ in sorted(spans, key=lambda e: e[1]) if n.startswith("slam.")]
+    assert stages == ["slam.odom", "slam.track", "slam.map", "slam.sync", "slam.vis",
+                      "slam.submap_init"]
+    (_, m0, m1), = [e for e in spans if e[0] == "slam.map"]
+    steps = [e for e in spans if e[0] == "miso.step"]
+    assert any(m0 <= a and b <= m1 for _, a, b in steps)
+    assert (ts.profile_summary() is not None) == profiled
 
 
 def test_breakdown_and_device_trace(tmp_path, capsys):
