@@ -1322,6 +1322,34 @@ def _exact(want):
     return {**{k: 0 for k in SLOT_COUNTERS}, **want}
 
 
+def trained_level_grads(bursts, num_levels, mode, per_level):
+    """Table-gradient interp backwards of coarse-to-fine training: ``bursts``
+    is a list of (iterations, level_iterations), each a level schedule
+    (``train/trainer.py::level_schedule``: a GridTrainer's epochs or a mapper
+    burst), and a step launches ``per_level`` backwards for each level its
+    mask trains.  The train step asks autograd only for the trained leaves,
+    so a frozen level's backward runs only where a trained leaf (a pose)
+    needs the points' gradient."""
+    from miso_tpu_torch.train.trainer import level_schedule
+    return per_level * sum(num_levels if level >= num_levels else 1
+                           for iters, level_iters in bursts
+                           for level in level_schedule(iters, level_iters, num_levels, mode))
+
+
+def slam_map_bursts(cfg, spawns, frames, init_iters=None):
+    """System's mapper bursts: one start-up burst a spawned submap
+    (``init_iters``, else ``mapping.init_iterations``, levels of a third of
+    it) and one ``iters_per_frame`` burst a tracked frame."""
+    m = cfg["mapping"]
+    init = m.get("init_iterations", 50) if init_iters is None else init_iters
+    return ([(init, max(init // 3, 1))] * spawns
+            + [(m.get("iters_per_frame", 15), m.get("level_iters_per_frame", 5))] * frames)
+
+
+def train_mode(cfg):
+    return dict(cfg.get("train", {})).get("grid_training_mode", "coordinate+joint")
+
+
 def run_mapping_steps(cfg, timed_steps, per_step):
     """bench.py's mapping train step on ``cfg`` for WARMUP_STEPS + timed_steps
     steps; each kernel must launch exactly ``per_step[name]`` times a step.
@@ -2057,13 +2085,18 @@ def phase_slam(card):
     check(recon["F-score (%)"] >= JAX_CPU_FSCORE - FSCORE_MARGIN,
           f"F-score {recon['F-score (%)']:.3f} % more than {FSCORE_MARGIN} points under the "
           f"JAX package's {JAX_CPU_FSCORE:.3f} %")
-    # Mapping (features and stability queried: 4 interp and 4 interp grad a
-    # step) and Adam tracking (2 and 2) take the table-gradient backward.
+    # Mapping queries features and stability (4 interp forwards a step) and
+    # takes 2 table-gradient backwards for each level the step trains; Adam
+    # tracking takes 2 and 2 (its poses need both levels' points' gradient).
     ms, ts = online["map_steps"], online["track_steps"]
-    for what, counts, m_steps, t_steps in (("online run", c, ms, ts),
-                                           ("refinement", online["refine_launches"],
-                                            online["refine_iters"], 0)):
-        want = {"interp": 4 * m_steps + 2 * t_steps, "interp_grad": 4 * m_steps + 2 * t_steps,
+    L, mode = atlas.num_levels, train_mode(cfg)
+    refine = online["refine_iters"]
+    map_grads = trained_level_grads(slam_map_bursts(cfg, 1, ds.num_kfs - 1), L, mode, 2)
+    refine_grads = trained_level_grads([(refine, max(refine // 3, 1))], L, mode, 2)
+    for what, counts, m_steps, t_steps, grads in (("online run", c, ms, ts, map_grads),
+                                                  ("refinement", online["refine_launches"],
+                                                   refine, 0, refine_grads)):
+        want = {"interp": 4 * m_steps + 2 * t_steps, "interp_grad": grads + 2 * t_steps,
                 "decode": m_steps + t_steps, "interp_points_grad": 0, "fused": 0,
                 "interp_recompute_backward": 0}
         for name, n in _exact(want).items():
@@ -2456,13 +2489,16 @@ def phase_quad(card):
           "after the spawn than before it")
     # Per LM iteration 2 interp forwards, 2 points-only backwards and 1
     # decode; per mapping step (features only: no stability in this config)
-    # 2 interp forwards, 2 table-gradient backwards, 1 decode.
+    # 2 interp forwards, 1 decode and a table-gradient backward for each
+    # level the step trains.
     m = cfg["mapping"]
     tracked = QUAD_FRAMES - expected_submaps
     lm_iters = tracked * cfg["tracking"]["lm_max_iter"]
     map_steps = expected_submaps * m["init_iterations"] + tracked * m["iters_per_frame"]
+    map_grads = trained_level_grads(slam_map_bursts(cfg, expected_submaps, tracked),
+                                    atlas.num_levels, train_mode(cfg), 1)
     want = dict(interp=2 * lm_iters + 2 * map_steps, interp_points_grad=2 * lm_iters,
-                interp_grad=2 * map_steps, decode=lm_iters + map_steps, fused=0,
+                interp_grad=map_grads, decode=lm_iters + map_steps, fused=0,
                 interp_recompute_backward=0)
     for name, n in _exact(want).items():
         check(c[name] == n, f"quad run: {name} launched {c[name]} times, expected {n} "
@@ -3302,10 +3338,12 @@ def encoder_system_run(seq, model_cfg, decoder, init_mode, init_iters, counters,
         check(len(encoder.grids) == 0, f"{len(encoder.grids)} grids left registered")
     lm_iters = (seq.num_kfs - S) * cfg["tracking"]["lm_max_iter"]
     map_steps = S * init_iters + (seq.num_kfs - S) * 6
+    map_grads = trained_level_grads(slam_map_bursts(cfg, S, seq.num_kfs - S), L,
+                                    train_mode(cfg), 1)
     enc = S if init_mode == "encode" else 0
     _check_launches(f"System {init_mode}@{init_iters}", c, dict(
         interp=2 * lm_iters + 2 * map_steps + enc * L * L,
-        interp_points_grad=2 * lm_iters, interp_grad=2 * map_steps,
+        interp_points_grad=2 * lm_iters, interp_grad=map_grads,
         decode=lm_iters + map_steps + enc * L, fused=0, interp_recompute_backward=0))
     errs = []
     with torch.no_grad():
@@ -3396,10 +3434,12 @@ def phase_quad_encode(card, ate_zero):
     tracked = QUAD_FRAMES - S
     lm_iters = tracked * cfg["tracking"]["lm_max_iter"]
     map_steps = S * init_enc + tracked * m["iters_per_frame"]
+    map_grads = trained_level_grads(slam_map_bursts(cfg, S, tracked, init_enc), L,
+                                    train_mode(cfg), 1)
     c = online["launches"]
     _check_launches("quad run with encoder init", c, dict(
         interp=2 * lm_iters + 2 * map_steps + S * L * L, interp_points_grad=2 * lm_iters,
-        interp_grad=2 * map_steps, decode=lm_iters + map_steps + S * L, fused=0,
+        interp_grad=map_grads, decode=lm_iters + map_steps + S * L, fused=0,
         interp_recompute_backward=0))
     check(S == -(-QUAD_FRAMES // QUAD_SUBMAP_SIZE), f"{S} submaps")
     check(len(system.encoder_info) == S and len(encoder.grids) == 0,
@@ -4301,7 +4341,9 @@ def apps_bf16_training(counters):
     seconds = time.perf_counter() - t0
     c = _read_counts(counters)
     epochs, L = r["train"]["epochs"], model.num_levels
-    want = dict(interp=L * epochs, interp_grad=L * epochs, decode=epochs, interp_points_grad=0,
+    grads = trained_level_grads([(epochs, r["train"]["max_epochs_in_level"])], L,
+                                train_mode(r), 1)
+    want = dict(interp=L * epochs, interp_grad=grads, decode=epochs, interp_points_grad=0,
                 fused=0, interp_recompute_backward=0)
     for name, n in _exact(want).items():
         check(c[name] == n, f"bf16 training: {name} launched {c[name]} times, expected {n}")

@@ -25,7 +25,7 @@ from miso_tpu_torch.models.grid_net import create_grid_net
 from miso_tpu_torch.ops.diff import gradient3d
 from miso_tpu_torch.parallel.sharding import _replicated_names, shard_atlas
 from miso_tpu_torch.train.optim import masked_adam_update
-from miso_tpu_torch.train.trainer import guarded_update
+from miso_tpu_torch.train.trainer import TrainedLeaves, guarded_update
 
 
 def build_scene_stack(cfg_model: Dict, bounds: Sequence[np.ndarray],
@@ -130,12 +130,13 @@ def scene_parallel_decoder_step(scene_loss_fn: Callable = scene_tsdf_loss, **los
     the (S, N, ...) samples of the scenes ``params`` holds
     (:func:`stack_scene_batches`).
     """
+    leaves = TrainedLeaves()
 
     def step(params, opt_state, batches, key, mask, lr):
         tl, grads = scene_parallel_grads(params, batches, key, scene_loss_fn, **loss_kwargs)
         named = dict(params.named_parameters())
-        guarded_update(masked_adam_update, named, [grads[k] for k in named], opt_state, mask,
-                       lr, tl)
+        guarded_update(masked_adam_update, *leaves.select(named, [grads[k] for k in named], mask),
+                       opt_state, mask, lr, tl)
         return params, opt_state, tl.detach()
 
     return step

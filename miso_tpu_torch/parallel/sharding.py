@@ -46,7 +46,7 @@ import torch.distributed as dist
 from miso_tpu_torch.losses.common import batch_axis, total_loss
 from miso_tpu_torch.models.base import named_tensors
 from miso_tpu_torch.train.optim import masked_adam_update
-from miso_tpu_torch.train.trainer import guarded_update
+from miso_tpu_torch.train.trainer import TrainedLeaves, guarded_update
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -251,6 +251,7 @@ def data_parallel_train_step(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
     NaN guard reads the global total, so every rank takes or skips the step.
     """
     ax = mesh.axis(axis)
+    leaves = TrainedLeaves()
 
     def step(model, opt_state, batch, key, mask, lr):
         params = named_tensors(model)
@@ -261,7 +262,8 @@ def data_parallel_train_step(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
         tl = terms.sum()
         grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
         ax.sum_([g for g in grads if g is not None])
-        guarded_update(masked_adam_update, params, grads, opt_state, mask, lr, tl)
+        guarded_update(masked_adam_update, *leaves.select(params, grads, mask), opt_state, mask,
+                       lr, tl)
         return model, opt_state, tl.detach(), {k: terms[i].detach() for i, k in enumerate(names)}
 
     return step
@@ -361,6 +363,7 @@ def submap_parallel_fusion_step(loss_fn: Callable, mesh: Mesh, submap_axis: str 
     """
     sub = mesh.axis(submap_axis)
     data = mesh.axis(data_axis) if data_axis and data_axis in mesh.axis_names else None
+    leaves = TrainedLeaves()
 
     def step(params, opt_state, batch, key, mask, lr):
         named = dict(params.named_parameters())
@@ -376,7 +379,8 @@ def submap_parallel_fusion_step(loss_fn: Callable, mesh: Mesh, submap_axis: str 
             data.sum_(grads)
         shared = set(_replicated_names(params))
         sub.sum_([g for k, g in zip(named, grads) if k in shared], mean=True)
-        guarded_update(masked_adam_update, named, grads, opt_state, mask, lr, tl)
+        guarded_update(masked_adam_update, *leaves.select(named, grads, mask), opt_state, mask,
+                       lr, tl)
         return params, opt_state, tl.detach()
 
     return step

@@ -3,9 +3,10 @@
 ``make_train_step_pool``, ``make_train_scan``, ``level_schedule``,
 ``Trainer``, ``GridTrainer``).
 
-One step: loss dict, total, gradients wrt every named parameter, the NaN
-guard, and the masked optimizer update.  Training phases (per-level
-coordinate descent, joint finetune, pose locking) change only the mask.
+One step: loss dict, total, gradients wrt every parameter the mask trains,
+the NaN guard, and the masked optimizer update of those parameters.
+Training phases (per-level coordinate descent, joint finetune, pose locking)
+change only the mask.
 
 The loops are plain Python, one freshly sampled batch per epoch.  A
 checkpoint holds the whole train state (model, optimizer moments, the loss
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import os
 import time
+import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -37,6 +39,64 @@ from miso_tpu_torch.utils.profiling import span
 _UPDATES = {"adam": masked_adam_update, "sgd": masked_sgd_update}
 
 
+class TrainedLeaves:
+    """Which leaves a mask trains, read from the mask's tensors once.
+
+    ``leaves(names, mask)`` -> the names, in order, whose mask entry has an
+    element other than 0 (a Python number, a numpy array, a scalar or a
+    ``pose_rows`` tensor).  Only an entry of zeros is left out: there masked
+    Adam and SGD change neither the leaf nor its moments.  A number or array
+    is looked at on the host every call.  A tensor's flag is kept, beside a
+    weak reference to the tensor and its ``_version``, for as long as the
+    tensor lives: the same tensor unchanged is not read again, and one
+    replaced in the dict or written in place (``fill_``, a view's write) is.
+    The tensors not yet known are read together in one device-to-host copy,
+    inside the span ``miso.step.mask``; ``.reads`` counts the copies.  A mask
+    edited behind torch's version counter (through ``.data`` or a numpy
+    view) is not seen.
+    """
+
+    def __init__(self):
+        self.reads = 0
+        self._flags: Dict[int, tuple] = {}   # id -> (weakref, _version, flag)
+
+    def _forget(self, key: int, ref):
+        if self._flags.get(key, (None,))[0] is ref:
+            del self._flags[key]
+
+    def __call__(self, names, mask) -> tuple:
+        flags = {}
+        unread = []
+        for k in names:
+            m = mask[k]
+            if not isinstance(m, torch.Tensor):
+                flags[k] = bool(np.any(np.asarray(m) != 0))
+                continue
+            e = self._flags.get(id(m))
+            if e is not None and e[0]() is m and e[1] == m._version:
+                flags[k] = e[2]
+            else:
+                unread.append((k, m))
+        if unread:
+            with span("miso.step.mask"):
+                dev = unread[0][1].device
+                read = torch.stack([torch.any(m != 0).to(dev) for _, m in unread]).tolist()
+            self.reads += 1
+            for (k, m), f in zip(unread, read):
+                flags[k] = f
+                key = id(m)
+                ref = weakref.ref(m, lambda r, key=key: self._forget(key, r))
+                self._flags[key] = (ref, m._version, f)
+        return tuple(k for k in names if flags[k])
+
+    def select(self, params, grads, mask):
+        """``params`` (name -> tensor) and ``grads`` (in the same order) cut
+        to the leaves ``mask`` trains, for :func:`guarded_update`."""
+        keep = set(self(params, mask))
+        return ({k: p for k, p in params.items() if k in keep},
+                [g for k, g in zip(params, grads) if k in keep])
+
+
 def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     """Build the train step.
 
@@ -46,44 +106,66 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     (model, opt_state, total, loss_dict) updates the model's parameters and
     the optimizer state in place and returns them.
 
+    Only the leaves the mask trains (:class:`TrainedLeaves`) take part in the
+    backward and the update: autograd is asked for their gradients alone, so
+    it leaves out every node that leads only to frozen leaves, and a frozen
+    leaf, its moments and its step count stay as they are, as the full
+    masked update would leave them.  With no leaf trained no backward runs;
+    the loss is still computed and returned.  The step reads which leaves a
+    mask trains once for each mask tensor it has not seen unchanged
+    (``step.mask_reads`` counts the reads); ``step.leaves_skipped`` counts
+    the frozen leaves left out, over every step.
+
     NaN guard: a non-finite total zeroes the effective mask, so the step
     changes no parameter and no moment; non-finite gradient entries become
     finite (``nan_to_num``).  The guard runs on the device, without a host
     read of the loss.
 
-    A step opens the spans ``miso.step`` and, inside it in turn,
-    ``miso.step.loss``, ``miso.step.grad`` and ``miso.step.update``
-    (``utils/profiling.py::span``: marks for a recording profiler, nothing
-    otherwise).
+    A step opens the span ``miso.step`` and, inside it in turn,
+    ``miso.step.mask`` (only when a mask is read), ``miso.step.loss``,
+    ``miso.step.grad`` and ``miso.step.update`` (the last two only when a
+    leaf trains; ``utils/profiling.py::span``: marks for a recording
+    profiler, nothing otherwise).
     """
     if optimizer not in _UPDATES:
         raise ValueError(f"Invalid optimizer: {optimizer}")
     update = _UPDATES[optimizer]
+    leaves = TrainedLeaves()
 
     def step(model, opt_state, batch, key, mask, lr):
         with span("miso.step"):
             params = named_tensors(model)
+            trained = {k: params[k] for k in leaves(params, mask)}
+            step.mask_reads = leaves.reads
+            step.leaves_skipped += len(params) - len(trained)
             with span("miso.step.loss"):
                 loss_dict = loss_fn(model, batch, key)
                 tl = total_loss(loss_dict)
-            with span("miso.step.grad"):
-                grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
-            with span("miso.step.update"):
-                guarded_update(update, params, grads, opt_state, mask, lr, tl)
+            if trained:
+                with span("miso.step.grad"):
+                    grads = torch.autograd.grad(tl, list(trained.values()), allow_unused=True)
+                with span("miso.step.update"):
+                    guarded_update(update, trained, grads, opt_state, mask, lr, tl)
             return (model, opt_state, tl.detach(),
                     {k: v.detach() for k, v in loss_dict.items()})
 
+    step.mask_reads = 0
+    step.leaves_skipped = 0
     return step
 
 
 def guarded_update(update, params, grads, opt_state, mask, lr, total):
-    """The step's update of ``params`` (name -> tensor) from ``grads`` (in
-    the same order; None for an unused tensor): non-finite gradient entries
-    made finite, the mask zeroed where ``total`` is not finite."""
+    """The step's update of ``params`` (name -> tensor: the leaves ``mask``
+    trains, :meth:`TrainedLeaves.select`) from ``grads`` (in the same order;
+    None for an unused tensor): non-finite gradient entries made finite, the
+    mask zeroed where ``total`` is not finite.  A leaf left out, and its
+    optimizer state, are not touched."""
+    if not params:
+        return
     grads = {k: torch.zeros_like(p) if g is None else torch.nan_to_num(g)
              for (k, p), g in zip(params.items(), grads)}
     guard = torch.isfinite(total).to(torch.float32)
-    update(grads, opt_state, params, {k: m * guard for k, m in mask.items()}, lr=lr)
+    update(grads, opt_state, params, {k: mask[k] * guard for k in params}, lr=lr)
 
 
 def pool_batch_rows(u: torch.Tensor, sel: torch.Tensor, n_rows_sel: torch.Tensor,
@@ -110,7 +192,8 @@ def make_train_burst_pool(loss_fn: Callable, optimizer: str = "adam"):
     :func:`pool_batch_rows` of every pool field (``pool``: name ->
     (num_kfs, n_max, ...)), with ``sample_frame_ids`` = the selected
     keyframe of each row and unit ``weights``.  Nothing reads the device
-    from the host.
+    from the host but the step's one read of a mask it has not seen
+    (:class:`TrainedLeaves`; the burst's step is kept across bursts).
     """
     step = make_train_step(loss_fn, optimizer)
 
@@ -150,7 +233,7 @@ def make_train_step_pool(loss_fn: Callable, optimizer: str = "adam"):
     both from ``generator`` on the pool's device -- with ``sample_frame_ids`` = the keyframe of each
     row and unit ``weights``, then :func:`make_train_step`'s update.
     ``pool``: name -> (num_kfs, n_max, ...).  Nothing reads the device from
-    the host.
+    the host but the step's one read of a mask it has not seen.
     """
     step = make_train_step(loss_fn, optimizer)
 

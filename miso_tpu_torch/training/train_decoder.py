@@ -134,15 +134,16 @@ def train_round_robin(datasets: Sequence[Sdf3D], epochs: int, trunc_dist: float,
     for name, lr, level, ignore_fine in STAGES:
         _log(f"=== {name}: {epochs} epochs, lr={lr} ===")
         opts = [masked_adam_init(g) for g in grids]
+        masks = [grid_net_mask(g, level=g.num_levels if level is None else level, pose=False)
+                 for g in grids]
         rng = np.random.default_rng(0)
         k = torch.Generator(device=device).manual_seed(1)
         for e in range(epochs):
             i = e % len(grids)
             g = grids[i].with_ignore_level([1] if ignore_fine else [])
-            mask = grid_net_mask(g, level=g.num_levels if level is None else level, pose=False)
             batch = {kk: torch.as_tensor(v, device=device)
                      for kk, v in datasets[i].sample(rng).items()}
-            _, _, tl, _ = step(g, opts[i], batch, k, mask, lr)
+            _, _, tl, _ = step(g, opts[i], batch, k, masks[i], lr)
             if e % LOG_EVERY == 0:
                 _log(f"  epoch {e} scene {i}: loss={float(tl):.3e}")
         out[name] = float(tl)

@@ -29,6 +29,9 @@ two packages draw different random numbers:
   * ``submap_parallel_fusion_step`` over (submap 2 x data 1) and (1 x 2)
     meshes against the unsharded step;
   * ``initialize`` from the three environment variables;
+  * on a one-rank mesh in the test's own process, the data-parallel step
+    with a fixed decoder leaves the decoder's state untouched and equals
+    the update over every leaf;
   * ``train_decoder``'s scene-parallel pretraining on 2 ranks against 1,
     and its CLI, whose ``.npz`` loads as ``decoder.pretrained_model`` in
     both packages.
@@ -518,6 +521,65 @@ def test_one_rank_mesh_without_a_process_group():
     assert mesh.axis("data").psum(x) is x
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(2)
+
+
+def test_one_rank_step_leaves_a_frozen_decoder_alone(monkeypatch):
+    """The data-parallel step on a one-rank mesh, decoder fixed: the
+    decoder's parameters and Adam state stay untouched, and every leaf and
+    moment equals the update over every leaf, bit for bit."""
+    from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+    from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
+    from miso_tpu_torch.parallel import sharding
+    from miso_tpu_torch.train.optim import masked_adam_init
+    from miso_tpu_torch.train.trainer import TrainedLeaves
+
+    cfg = copy.deepcopy(RATIO_CFG)
+    cfg["decoder"]["fix"] = True
+    loss_fn = make_loss(mapping_loss, **dict(RATIO_LOSS, weight_eik=0.0))
+    r = np.random.default_rng(2)
+    N = 512
+    batches = [{"coords_frame": torch.as_tensor(r.uniform(-0.9, 0.9, (N, 3)), dtype=torch.float32),
+                "sample_frame_ids": torch.as_tensor(r.integers(0, 4, (N,)), dtype=torch.int32),
+                "weights": torch.ones((N, 1)),
+                "sdf": torch.as_tensor(r.uniform(-0.2, 0.2, (N, 1)), dtype=torch.float32),
+                "sdf_valid": torch.ones((N, 1)), "sdf_signs": torch.zeros((N, 1))}
+               for _ in range(3)]
+
+    def run(full):
+        model = create_grid_net(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+        start = {k: v.detach().clone() for k, v in model.named_parameters()}
+        opt = masked_adam_init(model)
+        state = {k: (model.get_parameter(k), opt.m[k], opt.v[k], opt.step[k]) for k in opt.m}
+        versions = {k: [t._version for t in ts] for k, ts in state.items()}
+        mask = grid_net_mask(model, level=model.num_levels, pose=False)
+        with monkeypatch.context() as mp:
+            if full:
+                # The guarded update over every leaf, the frozen ones included.
+                mp.setattr(TrainedLeaves, "select",
+                           lambda self, params, grads, mask: (params, list(grads)))
+            step = sharding.data_parallel_train_step(loss_fn, sharding.make_mesh())
+            for b in batches:
+                model, opt, _, _ = step(model, opt, b, None, mask, 1e-2)
+        return dict(model.named_parameters()), opt, start, state, versions
+
+    params, opt, start, state, versions = run(full=False)
+    ref_params, ref_opt, *_ = run(full=True)
+    decoder = [k for k in params if k.startswith("decoder.")]
+    assert decoder
+    for k in decoder:
+        assert torch.equal(params[k], start[k]), k
+        got = (params[k], opt.m[k], opt.v[k], opt.step[k])
+        # Untouched: the same tensors, never written (their versions as at
+        # the start), the moments still zero.
+        assert all(a is b for a, b in zip(got, state[k])), k
+        assert [t._version for t in got] == versions[k], k
+        assert not any(torch.any(t) for t in got[1:]), k
+    for k, p in params.items():
+        np.testing.assert_array_equal(np_(p), np_(ref_params[k]), err_msg=k)
+        for field in ("m", "v", "step"):
+            np.testing.assert_array_equal(np_(getattr(opt, field)[k]),
+                                          np_(getattr(ref_opt, field)[k]), err_msg=k)
+    assert not torch.equal(params["features.1"], start["features.1"])
 
 
 @pytest.mark.parametrize("case", ["dp_tsdf", "dp_ratio"])
