@@ -54,7 +54,7 @@ from miso_tpu_torch.ops import se3
 from miso_tpu_torch.parallel.sharding import shard_pair_ctx
 from miso_tpu_torch.train.optim import masked_adam_init
 from miso_tpu_torch.train.trainer import make_train_step
-from miso_tpu_torch.utils.profiling import synchronize
+from miso_tpu_torch.utils.profiling import span, synchronize
 
 class PairGenerators:
     """One ``torch.Generator`` per (src, dst) pair on ``device``, seeded by
@@ -627,91 +627,132 @@ def align_multiple_submaps_hierarchical(
     it (``shard_pair_ctx``); the result is the unsharded one.  The unrolled
     losses (``vmap_pairs=False``) do not shard, as in the JAX package.
     Returns per-stage timings.
+
+    Spans (``utils/profiling.py::span``): ``miso.align`` holds the call and,
+    inside it in turn, ``miso.align.precompute`` (the coordinate selection),
+    ``miso.align.intersect`` (the pair tests) and, for each level,
+    ``miso.align.ctx`` (its pair context and source terms) and
+    ``miso.align.steps`` (its step loop, with the steps' ``miso.step`` spans);
+    each phase that launches work ends with a synchronize inside its span.
+    Counters on this function, of the last call: ``.pairs`` (live pairs),
+    ``.pair_rows`` (rows of the padded pair batch), ``.points_per_step``
+    (live pairs times a pair's points at the last level run) and ``.steps``
+    (steps over every level).
     """
     if aot_only:
         raise NotImplementedError("aot_only compiles the JAX package's alignment without "
                                   "running it, a TPU compile means with no counterpart here")
     dev = atlas.device
-    t_pre = time.perf_counter()
-    atlas.precompute_coordinates_for_alignment(max_points=max_align_points)
-    synchronize(dev)
-    info: Dict = {"precompute_sec": time.perf_counter() - t_pre}
-    cpu_total = 0.0
-    if latent_levels is None:
-        latent_levels = range(atlas.num_levels)
-    S = atlas.num_submaps
-    pairs = submap_pairs if submap_pairs is not None else \
-        [(i, j) for i in range(S) for j in range(i + 1, S)]
-    pairs = [(i, j) for (i, j) in pairs if atlas.check_submap_intersection(i, j)]
-    if not pairs:
-        # One submap or no overlapping pair: nothing to align.
-        info["cpu_time_sec"] = info["gpu_time_sec"] = 0.0
+    fn = align_multiple_submaps_hierarchical
+    fn.pairs = fn.pair_rows = fn.points_per_step = fn.steps = 0
+    with span("miso.align"):
+        t_pre = time.perf_counter()
+        with span("miso.align.precompute"):
+            atlas.precompute_coordinates_for_alignment(max_points=max_align_points)
+            synchronize(dev)
+        info: Dict = {"precompute_sec": time.perf_counter() - t_pre}
+        cpu_total = 0.0
+        if latent_levels is None:
+            latent_levels = range(atlas.num_levels)
+        S = atlas.num_submaps
+        pairs = submap_pairs if submap_pairs is not None else \
+            [(i, j) for i in range(S) for j in range(i + 1, S)]
+        with span("miso.align.intersect"):
+            pairs = [(i, j) for (i, j) in pairs if atlas.check_submap_intersection(i, j)]
+        if not pairs:
+            # One submap or no overlapping pair: nothing to align.
+            info["cpu_time_sec"] = info["gpu_time_sec"] = 0.0
+            return info
+        rows = 1 << max(S * (S - 1) // 2 - 1, 0).bit_length()
+        fn.pairs, fn.pair_rows = len(pairs), rows
+        ctx_secs: List[float] = []
+        common = dict(lr=lr, submap_pairs=pairs, check_intersection=False,
+                      pose_reg_weight=pose_reg_weight, pose_thresh_rad=pose_thresh_rad,
+                      pose_thresh_m=pose_thresh_m, verbose=verbose,
+                      save_iterations=save_iterations, batched_loss=vmap_pairs,
+                      pair_axis=mesh.axis(pair_axis) if mesh is not None and vmap_pairs else None)
+
+        def pair_ctx(level_, loss_fn):
+            t_c = time.perf_counter()
+            with span("miso.align.ctx"):
+                ctx = pair_context(atlas, level_, pairs, rows)
+                if mesh is not None:
+                    ctx = shard_pair_ctx(ctx, mesh, pair_axis)
+                if isinstance(loss_fn, FlatPairLoss):
+                    ctx = loss_fn.precompute_src(atlas.params, ctx)
+                synchronize(dev)
+            ctx_secs.append(time.perf_counter() - t_c)
+            return ctx
+
+        def run_steps(loss_fn, ctx, points, **kw):
+            with span("miso.align.steps"):
+                out = generic_align_multiple_submaps(atlas, loss_fn, loss_ctx=ctx, **common,
+                                                     **kw)
+            fn.points_per_step = len(pairs) * points
+            fn.steps += out["steps"]
+            return out
+
+        # The flat loss unless the loss needs each pair's own softmax (InfoNCE).
+        make_batched = make_vmapped_pair_loss if align_loss == "InfoNCE" else make_flat_pair_loss
+        for level in latent_levels:
+            if vmap_pairs:
+                pair_loss = make_batched("latent", level=level, align_weight=align_weight,
+                                         align_loss=align_loss, use_bound=use_bound,
+                                         stability_thresh=stability_thresh,
+                                         subsample_points=subsample_points)
+                ctx = pair_ctx(level, pair_loss)
+            else:
+                ctx = {s: atlas.coordinates_for_alignment(s, level) for s in range(S)}
+
+                def pair_loss(p, s, d, key, ctx, _level=level):
+                    cf, vf = ctx[s]
+                    return pairwise_loss_latent(p, atlas, s, d, _level, cf, vf, align_weight,
+                                                align_loss, use_bound, stability_thresh, None,
+                                                key, subsample_points)
+            level_info = run_steps(pair_loss, ctx, _pair_points_per_step(atlas, level,
+                                                                         subsample_points),
+                                   num_iters=level_iters, rel_change_thresh=level_thresh,
+                                   seed=seed + level)
+            cpu_total += level_info["cpu_time_sec"]
+            info[f"hier_latent_level{level}_{align_loss}"] = level_info
+        if not skip_finetune:
+            sdf_align_loss = "L2" if align_loss == "cos" else align_loss
+            finest = atlas.num_levels - 1
+            if vmap_pairs:
+                make_batched = (make_vmapped_pair_loss if sdf_align_loss == "InfoNCE"
+                                else make_flat_pair_loss)
+                pair_loss_sdf = make_batched("sdf", align_weight=align_weight,
+                                             align_loss=sdf_align_loss, use_bound=use_bound,
+                                             stability_thresh=stability_thresh,
+                                             gm_scale_sdf=gm_scale_sdf,
+                                             subsample_points=subsample_points)
+                ctx = pair_ctx(finest, pair_loss_sdf)
+            else:
+                ctx = {s: atlas.coordinates_for_alignment(s, finest) for s in range(S)}
+
+                def pair_loss_sdf(p, s, d, key, ctx):
+                    cf, vf = ctx[s]
+                    return pairwise_loss_sdf(p, atlas, s, d, cf, vf, align_weight,
+                                             sdf_align_loss, use_bound, stability_thresh,
+                                             gm_scale_sdf, key, subsample_points)
+            fin = run_steps(pair_loss_sdf, ctx, _pair_points_per_step(atlas, finest,
+                                                                      subsample_points),
+                            num_iters=finetune_iters, seed=seed + 101)
+            cpu_total += fin["cpu_time_sec"]
+            info[f"hier_sdf_{sdf_align_loss}"] = fin
+        info["ctx_build_secs"] = ctx_secs
+        info["cpu_time_sec"] = info["gpu_time_sec"] = cpu_total
         return info
-    rows = 1 << max(S * (S - 1) // 2 - 1, 0).bit_length()
-    ctx_secs: List[float] = []
 
-    def pair_ctx(level_, loss_fn):
-        t_c = time.perf_counter()
-        ctx = pair_context(atlas, level_, pairs, rows)
-        if mesh is not None:
-            ctx = shard_pair_ctx(ctx, mesh, pair_axis)
-        if isinstance(loss_fn, FlatPairLoss):
-            ctx = loss_fn.precompute_src(atlas.params, ctx)
-        synchronize(dev)
-        ctx_secs.append(time.perf_counter() - t_c)
-        return ctx
 
-    common = dict(lr=lr, submap_pairs=pairs, check_intersection=False,
-                  pose_reg_weight=pose_reg_weight, pose_thresh_rad=pose_thresh_rad,
-                  pose_thresh_m=pose_thresh_m, verbose=verbose, save_iterations=save_iterations,
-                  batched_loss=vmap_pairs,
-                  pair_axis=mesh.axis(pair_axis) if mesh is not None and vmap_pairs else None)
-    # The flat loss unless the loss needs each pair's own softmax (InfoNCE).
-    make_batched = make_vmapped_pair_loss if align_loss == "InfoNCE" else make_flat_pair_loss
-    for level in latent_levels:
-        if vmap_pairs:
-            pair_loss = make_batched("latent", level=level, align_weight=align_weight,
-                                            align_loss=align_loss, use_bound=use_bound,
-                                            stability_thresh=stability_thresh,
-                                            subsample_points=subsample_points)
-            ctx = pair_ctx(level, pair_loss)
-        else:
-            ctx = {s: atlas.coordinates_for_alignment(s, level) for s in range(S)}
+def _pair_points_per_step(atlas: GridAtlas, level: int, subsample_points) -> int:
+    """Points of one pair in a step at ``level``: its alignment coordinates,
+    or the subsample where one is drawn."""
+    n = int(atlas.alignment_coords_stacked(level)[0].shape[1])
+    return n if subsample_points is None else min(int(subsample_points), n)
 
-            def pair_loss(p, s, d, key, ctx, _level=level):
-                cf, vf = ctx[s]
-                return pairwise_loss_latent(p, atlas, s, d, _level, cf, vf, align_weight,
-                                            align_loss, use_bound, stability_thresh, None, key,
-                                            subsample_points)
-        level_info = generic_align_multiple_submaps(
-            atlas, pair_loss, num_iters=level_iters, rel_change_thresh=level_thresh,
-            seed=seed + level, loss_ctx=ctx, **common)
-        cpu_total += level_info["cpu_time_sec"]
-        info[f"hier_latent_level{level}_{align_loss}"] = level_info
-    if not skip_finetune:
-        sdf_align_loss = "L2" if align_loss == "cos" else align_loss
-        finest = atlas.num_levels - 1
-        if vmap_pairs:
-            make_batched = (make_vmapped_pair_loss if sdf_align_loss == "InfoNCE"
-                            else make_flat_pair_loss)
-            pair_loss_sdf = make_batched("sdf", align_weight=align_weight,
-                                                align_loss=sdf_align_loss, use_bound=use_bound,
-                                                stability_thresh=stability_thresh,
-                                                gm_scale_sdf=gm_scale_sdf,
-                                                subsample_points=subsample_points)
-            ctx = pair_ctx(finest, pair_loss_sdf)
-        else:
-            ctx = {s: atlas.coordinates_for_alignment(s, finest) for s in range(S)}
 
-            def pair_loss_sdf(p, s, d, key, ctx):
-                cf, vf = ctx[s]
-                return pairwise_loss_sdf(p, atlas, s, d, cf, vf, align_weight, sdf_align_loss,
-                                         use_bound, stability_thresh, gm_scale_sdf, key,
-                                         subsample_points)
-        fin = generic_align_multiple_submaps(atlas, pair_loss_sdf, num_iters=finetune_iters,
-                                             seed=seed + 101, loss_ctx=ctx, **common)
-        cpu_total += fin["cpu_time_sec"]
-        info[f"hier_sdf_{sdf_align_loss}"] = fin
-    info["ctx_build_secs"] = ctx_secs
-    info["cpu_time_sec"] = info["gpu_time_sec"] = cpu_total
-    return info
+align_multiple_submaps_hierarchical.pairs = 0
+align_multiple_submaps_hierarchical.pair_rows = 0
+align_multiple_submaps_hierarchical.points_per_step = 0
+align_multiple_submaps_hierarchical.steps = 0

@@ -18,6 +18,12 @@ recorded.  The names and the thread each opens on:
       trained leaves (caller's thread).  A CUDA backward runs on PyTorch's
       autograd worker thread: its kernels lie in ``miso.step.grad`` by
       time, not by scope.
+  ``miso.align``, ``.precompute``, ``.intersect``, ``.ctx``, ``.steps``
+      ``align/miso.py::align_multiple_submaps_hierarchical``'s call, its
+      selection of the alignment coordinates, its pair tests, and each
+      level's pair context and step loop (the ``miso.step`` spans inside),
+      each closed after the synchronize that ends its work (caller's
+      thread).
   ``miso.launch.<kernel>``
       each kernel launcher of ``ops/tiled_interp.py`` and
       ``ops/fused_decode.py``, at its ``.launches`` counter: the
