@@ -8,11 +8,14 @@ the destination submap's at the same points moved into its frame, coarse
 level to fine, then optionally in SDF space.
 
 The default pair loss (:func:`make_flat_pair_loss`) puts every pair's
-points in one flat batch: each point carries its source and destination
-slot ids, the destination query is one slot-id interp call a level over the
-atlas's stacked storage (``GridAtlasParams.query_feature_per_point``; the
-slot-id kernels on the card), and the per-pair means come from segment sums
-(``index_add``).  The source-side terms do not depend on the poses, so
+points in one batch of (pair row, point): each row gathers its source and
+destination poses once and moves its points by broadcasting over them
+(:meth:`FlatPairLoss.to_destination`), so the poses' gradient comes back as
+sums over each row's points and a gather backward into the pair rows; the
+destination query is one slot-id interp call a level over the atlas's
+stacked storage (``GridAtlasParams.query_feature_per_point``; the slot-id
+kernels on the card), and the per-pair means come from sums over each row.
+The source-side terms do not depend on the poses, so
 :meth:`FlatPairLoss.precompute_src` computes them once per alignment call.
 The flat axis is not chunked: at the sizes the repo runs (one to a few
 pairs of 2^15 points or fewer after subsampling) its tensors take a few MB.
@@ -221,11 +224,15 @@ def _safe_norm(v, dim, keepdim=False):
 
 
 class FlatPairLoss:
-    """Every pair's points in one flat per-point batch (see the module note).
+    """Every pair's points in one batch of pair rows (see the module note).
 
     ``loss(params, gens, ctx) -> {name: scalar}``, ``ctx`` a
     :class:`PairContext` (its source terms computed on the fly when it has
-    none), ``gens`` a :class:`PairGenerators` for the subsample."""
+    none), ``gens`` a :class:`PairGenerators` for the subsample.  Counter on
+    the class: ``.pose_rows``, the pose rows the last call gathered (two a
+    pair row)."""
+
+    pose_rows = 0
 
     def __init__(self, kind, level=None, align_weight=3000.0, align_loss="L2", use_bound=True,
                  stability_thresh=0.0, trunc_factor=None, gm_scale_sdf=0.1,
@@ -268,26 +275,58 @@ class FlatPairLoss:
                                      ctx.coords.reshape(P * N, d))
         return ctx._replace(src_vals=vals.reshape(P, N, -1), src_mask=smask.reshape(P, N, 1))
 
-    def point_sums(self, params: GridAtlasParams, R, t, P, pair_of_point, ids_src, ids_dst,
-                   pts, mask, src_vals):
-        """Per-pair sums ((P,) masked terms, (P,) mask counts)."""
-        world = se3.transform_points_by_id(pts, ids_src, R, t)
-        coords_to = se3.inverse_transform_points_by_id(world, ids_dst, R, t)
+    def to_destination(self, params: GridAtlasParams, R, t, src_ids, dst_ids, coords, mask):
+        """Each pair row's (N, 3) points ``coords`` (P, N, 3) moved from its
+        source submap's frame into its destination's, and ``mask`` (P, N, 1)
+        times their destination bound test where ``use_bound``.  A row's two
+        poses are gathered once and broadcast over its points, summed in
+        ``se3.transform_points_by_id`` and ``inverse_transform_points_by_id``'s
+        order (the same float32 operations, so the same bits); their gradient
+        comes back as sums over each row's points and a gather backward into
+        the 2P rows (``FlatPairLoss.pose_rows``)."""
+        src, dst = src_ids.long(), dst_ids.long()
+        Rs, ts, Rd, td = R[src], t[src], R[dst], t[dst]
+        FlatPairLoss.pose_rows = 2 * src.shape[0]
+        world = []
+        for j in range(3):
+            acc = ts[:, j, None]
+            for k in range(3):
+                acc = acc + Rs[:, j, k, None] * coords[..., k]
+            world.append(acc)
+        d = [world[k] - td[:, k, None] for k in range(3)]
+        cols = []
+        for j in range(3):
+            acc = Rd[:, 0, j, None] * d[0]
+            for k in range(1, 3):
+                acc = acc + Rd[:, k, j, None] * d[k]
+            cols.append(acc)
+        coords_to = torch.stack(cols, dim=-1)
         if self.use_bound:
-            b = params.bounds[ids_dst.long()]
+            b = params.bounds[dst][:, None]                                   # (P, 1, d, 2)
             inside = (coords_to >= b[..., 0]) & (coords_to <= b[..., 1])
-            mask = mask * torch.all(inside, dim=-1, keepdim=True).to(pts.dtype)
-        if self.stability_thresh > 0:
-            mu = params.query_stability_per_point(ids_dst, coords_to)[:, :1]
-            mask = mask * (mu > self.stability_thresh)
-        seg_ids = pair_of_point.long()
+            mask = mask * torch.all(inside, dim=-1, keepdim=True).to(coords.dtype)
+        return coords_to, mask
 
-        def seg(x):  # (n,) per-point -> (P,) per-pair sums
-            return torch.zeros((P,), dtype=x.dtype, device=x.device).index_add(0, seg_ids, x)
+    def point_sums(self, params: GridAtlasParams, R, t, src_ids, dst_ids, coords, mask,
+                   src_vals):
+        """Per-pair sums ((P,) masked terms, (P,) mask counts) of the pair
+        rows: ``coords`` (P, N, 3), ``mask`` (P, N, 1), ``src_vals`` (P, N, C)."""
+        P, N, d = coords.shape
+        coords_to, mask = self.to_destination(params, R, t, src_ids, dst_ids, coords, mask)
+        ids_dst = dst_ids.repeat_interleave(N)
+        pts_to = coords_to.reshape(P * N, d)
+        mask = mask.reshape(P * N, 1)
+        src_vals = src_vals.reshape(P * N, -1)
+        if self.stability_thresh > 0:
+            mu = params.query_stability_per_point(ids_dst, pts_to)[:, :1]
+            mask = mask * (mu > self.stability_thresh)
+
+        def seg(x):  # (P * N,) per-point -> (P,) per-pair sums
+            return x.reshape(P, N).sum(1)
 
         loss = self.align_loss
         if self.kind == "latent":
-            f_to = params.query_feature_per_point(ids_dst, coords_to)[:, :src_vals.shape[-1]]
+            f_to = params.query_feature_per_point(ids_dst, pts_to)[:, :src_vals.shape[-1]]
             c = src_vals - f_to
             if loss == "L2":
                 term = seg(torch.sum(mask * c ** 2, dim=1))
@@ -299,7 +338,7 @@ class FlatPairLoss:
                        * _safe_norm(f_to, dim=1, keepdim=True))
                 term = seg((mask * (1.0 - num / torch.clamp(den, min=1e-8)))[:, 0])
         else:
-            c = src_vals - params.forward_per_point(ids_dst, coords_to)
+            c = src_vals - params.forward_per_point(ids_dst, pts_to)
             if loss == "L2":
                 term = seg((mask * c ** 2)[:, 0])
             elif loss == "L1":
@@ -308,8 +347,12 @@ class FlatPairLoss:
                 term = seg((mask * gm_weighted_sq(c, self.gm_scale_sdf))[:, 0])
         return term, seg(mask[:, 0])
 
-    def __call__(self, params: GridAtlasParams, gens: Optional[PairGenerators],
-                 ctx: PairContext):
+    def sample_rows(self, params: GridAtlasParams, gens: Optional[PairGenerators],
+                    ctx: PairContext):
+        """The pair rows a call evaluates: (coords (P, N, 3), mask (P, N, 1),
+        source values (P, N, C)), each row's subsample drawn from its pair's
+        generator where ``subsample_points`` is under N, the source terms
+        computed here where ``ctx`` has none."""
         coords, valid = ctx.coords, ctx.valid
         src_vals, src_mask = ctx.src_vals, ctx.src_mask
         P, N = coords.shape[0], coords.shape[1]
@@ -323,16 +366,18 @@ class FlatPairLoss:
             if src_vals is not None:
                 src_vals, src_mask = src_vals[rows, idx], src_mask[rows, idx]
             N = M
-        ids_src = ctx.src_ids.repeat_interleave(N)
-        pts = coords.reshape(P * N, coords.shape[-1])
         if src_vals is None:
-            sv, sm = self.src_terms(params, ids_src, pts)
-        else:
-            sv, sm = src_vals.reshape(P * N, -1), src_mask.reshape(P * N, 1)
+            sv, sm = self.src_terms(params, ctx.src_ids.repeat_interleave(N),
+                                    coords.reshape(P * N, coords.shape[-1]))
+            src_vals, src_mask = sv.reshape(P, N, -1), sm.reshape(P, N, 1)
+        return coords, valid * src_mask, src_vals
+
+    def __call__(self, params: GridAtlasParams, gens: Optional[PairGenerators],
+                 ctx: PairContext):
+        coords, mask, src_vals = self.sample_rows(params, gens, ctx)
         R, t = params.updated_submap_poses()
-        term, cnt = self.point_sums(
-            params, R, t, P, torch.arange(P, device=dev).repeat_interleave(N), ids_src,
-            ctx.dst_ids.repeat_interleave(N), pts, valid.reshape(P * N, 1) * sm, sv)
+        term, cnt = self.point_sums(params, R, t, ctx.src_ids, ctx.dst_ids, coords, mask,
+                                    src_vals)
         counts = torch.clamp(cnt, min=1.0)
         if self.kind == "latent" and self.align_loss == "L2":
             counts = counts * (params.fdim * (self.level + 1))

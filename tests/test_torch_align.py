@@ -306,6 +306,91 @@ def test_flat_pair_loss_matches_jax(atlases, kind, level, loss_type):
     np.testing.assert_allclose(float(sum(parts)), float(value), rtol=1e-5)
 
 
+def per_point_sums(loss, params, R, t, src_ids, dst_ids, coords, mask, src_vals):
+    """The flat loss on per-point ids: each point's poses gathered by its
+    own id (``se3``'s by-id transforms), the per-pair sums an ``index_add``
+    over each point's pair row.  Returns (coords_to (P * N, 3), mask after
+    the bound (P * N, 1), per-pair terms (P,), per-pair counts (P,))."""
+    P, N, d = coords.shape
+    ids_src, ids_dst = src_ids.repeat_interleave(N), dst_ids.repeat_interleave(N)
+    world = se3.transform_points_by_id(coords.reshape(P * N, d), ids_src, R, t)
+    coords_to = se3.inverse_transform_points_by_id(world, ids_dst, R, t)
+    m = mask.reshape(P * N, 1)
+    if loss.use_bound:
+        b = params.bounds[ids_dst.long()]
+        m = m * torch.all((coords_to >= b[..., 0]) & (coords_to <= b[..., 1]), dim=-1,
+                          keepdim=True).to(m.dtype)
+    bound_mask = m
+    rows = torch.arange(P).repeat_interleave(N)
+
+    def seg(x):
+        return torch.zeros((P,), dtype=x.dtype).index_add(0, rows, x)
+
+    sv = src_vals.reshape(P * N, -1)
+    if loss.kind == "latent":
+        f_to = params.query_feature_per_point(ids_dst, coords_to)[:, :sv.shape[-1]]
+        c = sv - f_to
+        if loss.align_loss == "L2":
+            term = seg(torch.sum(m * c ** 2, dim=1))
+        elif loss.align_loss == "L1":
+            term = seg(m[:, 0] * t_align._safe_norm(c, dim=1))
+        else:
+            num = torch.sum(sv * f_to, dim=1, keepdim=True)
+            den = t_align._safe_norm(sv, dim=1, keepdim=True) * t_align._safe_norm(
+                f_to, dim=1, keepdim=True)
+            term = seg((m * (1.0 - num / torch.clamp(den, min=1e-8)))[:, 0])
+    else:
+        c = sv - params.forward_per_point(ids_dst, coords_to)
+        if loss.align_loss == "L2":
+            term = seg((m * c ** 2)[:, 0])
+        elif loss.align_loss == "L1":
+            term = seg(m[:, 0] * t_align._safe_norm(c, dim=1))
+        else:
+            term = seg((m * t_align.gm_weighted_sq(c, loss.gm_scale_sdf))[:, 0])
+    return coords_to, bound_mask, term, seg(m[:, 0])
+
+
+@pytest.mark.parametrize("subsample", [None, 50], ids=["all", "subsample"])
+@pytest.mark.parametrize("kind,level,loss_type", LOSSES,
+                         ids=[f"{k}{'' if l is None else l}_{t}" for k, l, t in LOSSES])
+def test_flat_pair_rows_match_per_point_ids(atlases, kind, level, loss_type, subsample):
+    """The flat loss's pair rows (each row's poses gathered once, its sums
+    over the row) against the same loss on per-point ids, on a batch with a
+    pad row: the destination points and the bound mask bit for bit, the
+    per-pair sums and the pose gradient to 1e-6; two pose rows a pair row."""
+    ja, ta = atlases
+    loss = t_align.make_flat_pair_loss(kind, level=level, align_loss=loss_type,
+                                       subsample_points=subsample)
+    ctx = port_ctx(pair_batch(ja))
+    coords, mask, src_vals = loss.sample_rows(ta.params, t_align.PairGenerators(7, "cpu"), ctx)
+    P, N = coords.shape[:2]
+    assert N == (subsample or ctx.coords.shape[1])
+    rot = ta.params.sub_rot_corr.detach().clone().requires_grad_()
+    trans = ta.params.sub_trans_corr.detach().clone().requires_grad_()
+    p = ta.params.replace(sub_rot_corr=rot, sub_trans_corr=trans)
+    R, t = p.updated_submap_poses()
+    args = (p, R, t, ctx.src_ids, ctx.dst_ids, coords, mask)
+    to, bound_mask = loss.to_destination(*args)
+    assert t_align.FlatPairLoss.pose_rows == 2 * P
+    ref_to, ref_mask, ref_term, ref_cnt = per_point_sums(loss, *args, src_vals)
+    assert torch.equal(to.reshape(P * N, 3), ref_to)
+    assert torch.equal(bound_mask.reshape(P * N, 1), ref_mask)
+    assert 0 < float(ref_mask.sum()) < float(mask.sum())
+    term, cnt = loss.point_sums(*args, src_vals)
+    torch.testing.assert_close(term, ref_term, rtol=1e-6, atol=0)
+    torch.testing.assert_close(cnt, ref_cnt, rtol=1e-6, atol=0)
+    assert float(term[-1]) == float(cnt[-1]) == 0.0 and float(term[:-1].min()) > 0
+
+    def grads(term, cnt):
+        return torch.autograd.grad(torch.sum(term / torch.clamp(cnt, min=1.0)), (rot, trans),
+                                   retain_graph=True)
+
+    got, ref = grads(term, cnt), grads(ref_term, ref_cnt)
+    assert float(ref[1].abs().max()) > 0
+    for g, r in zip(got, ref):
+        grad_close(g, r, 1e-6)
+
+
 def test_pair_loss_subsample_and_trust_region(atlases):
     """A subsample draws per pair from its own generator: the same draws
     whatever the pair's row; the trust region matches the JAX hinge."""

@@ -7,7 +7,7 @@ the alignment cell's small atlas (``portbench/tests/align_cells.py``).
   ``miso.align.ctx`` and ``miso.align.steps``, and the steps' ``miso.step``
   spans lie inside ``miso.align.steps``.
 * The counters read the last call: live pairs, padded rows, points a step
-  and steps.
+  and steps; the flat pair loss gathers two pose rows a padded pair row.
 * With no profiler recording the call opens no span.
 """
 from __future__ import annotations
@@ -51,6 +51,13 @@ def test_align_counters_read_the_last_call(runner):
     assert (fn.pairs, fn.pair_rows, fn.steps) == (3, 4, 51)
     assert fn.points_per_step == 3 * int(runner.align_cfg["max_points"])
     assert runner.pair_points == fn.points_per_step
+
+
+def test_flat_loss_gathers_two_pose_rows_a_pair_row(runner):
+    align.FlatPairLoss.pose_rows = 0
+    runner._call()
+    assert align.FlatPairLoss.pose_rows == 2 * align.align_multiple_submaps_hierarchical.pair_rows
+    assert align.FlatPairLoss.pose_rows == 8
 
 
 def test_align_without_a_profiler_opens_no_span(runner, monkeypatch):

@@ -848,6 +848,79 @@ def test_vmapped_infonce_matches_unrolled_and_the_cpu(dev):
             torch.testing.assert_close(g, r, atol=1e-4 * scale, rtol=0)
 
 
+def test_flat_pair_loss_pose_gradient_sums_each_row(dev):
+    """The flat pair loss's pose gradient at the alignment cell's layout (45
+    pairs of 10 submaps padded to 64 rows of 32768 points, 16 pose rows,
+    latent L2 at level 1) against a float64 sum on the CPU of every point's
+    contributions, built from the same run's gradient at the destination
+    points: to 1e-5 of each leaf's largest entry (each row's pose gradient
+    is a tree sum over its points); two pose rows gathered a pair row."""
+    from miso_tpu_torch.align import miso
+    from miso_tpu_torch.models.grid_atlas import GridAtlas
+    cfg = {"spatial_dim": 3,
+           "grid": {"type": "regular", "feature_dim": 4, "init_stddev": 0.0,
+                    "bound": [[-3.0, 3.0], [-3.0, 3.0], [-2.0, 2.0]], "base_cell_size": 0.5,
+                    "per_level_scale": 5.0, "n_levels": 2},
+           "decoder": {"type": "mlp", "hidden_dim": 32, "hidden_layers": 1, "out_dim": 1,
+                       "pos_invariant": True, "fix": True, "pretrained_model": None},
+           "pose": {"optimize": False, "num_poses": 1}}
+    local = np.asarray(cfg["grid"]["bound"], np.float32)
+    atlas = GridAtlas(cfg, capacity=16, device=dev)
+    for s in range(10):
+        a = 0.6 * s
+        atlas.add_submap(local, tws=np.array([1.5 * np.cos(a), 1.5 * np.sin(a), 0.1 * s]))
+    gen = torch.Generator(device=dev).manual_seed(5)
+    p = atlas.params
+    with torch.no_grad():
+        for f in p.features:
+            f[:10] = torch.randn(f[:10].shape, generator=gen, device=dev)
+        p.sub_rot_corr[1:10] = 0.03 * torch.randn((9, 3), generator=gen, device=dev)
+        p.sub_trans_corr[1:10] = 0.1 * torch.randn((9, 3), generator=gen, device=dev)
+    pairs = [(i, j) for i in range(10) for j in range(i + 1, 10)] + [(0, 0)] * 19
+    P, N = len(pairs), 32768
+    src = torch.tensor([s for s, _ in pairs], dtype=torch.int32, device=dev)
+    dst = torch.tensor([d for _, d in pairs], dtype=torch.int32, device=dev)
+    lo, hi = torch.tensor(local[:, 0], device=dev), torch.tensor(local[:, 1], device=dev)
+    coords = lo + (hi - lo) * torch.rand((P, N, 3), generator=gen, device=dev)
+    valid = (torch.rand((P, N, 1), generator=gen, device=dev) < 0.9).float()
+    valid[45:] = 0.0
+    loss = miso.make_flat_pair_loss("latent", level=1)
+    ctx = loss.precompute_src(p, miso.PairContext(src, dst, coords, valid, tuple(pairs)))
+    rows, mask, src_vals = loss.sample_rows(p, None, ctx)
+    R0, t0 = p.updated_submap_poses()
+    R, t = R0.detach().clone().requires_grad_(), t0.detach().clone().requires_grad_()
+    seen = {}
+    to_destination = loss.to_destination
+
+    def record(*args):
+        seen["to"], m = to_destination(*args)
+        seen["to"].retain_grad()
+        return seen["to"], m
+
+    loss.to_destination = record
+    term, cnt = loss.point_sums(p, R, t, src, dst, rows, mask, src_vals)
+    torch.sum(term / torch.clamp(cnt, min=1.0)).backward()
+    assert miso.FlatPairLoss.pose_rows == 2 * P
+
+    g = seen["to"].grad.double().cpu()                      # (P, N, 3) at coords_to
+    x = rows.double().cpu()
+    R64, t64 = R.detach().double().cpu(), t.detach().double().cpu()
+    s_, d_ = src.long().cpu(), dst.long().cpu()
+    world = (R64[s_][:, None] * x[:, :, None, :]).sum(-1) + t64[s_][:, None]
+    diff = world - t64[d_][:, None]
+    # coords_to[p, n, j] = sum_k Rd[p, k, j] diff[p, n, k]; its gradient to world:
+    g_world = (R64[d_][:, None] * g[:, :, None, :]).sum(-1)
+    ref_R = (torch.zeros((16, 3, 3), dtype=torch.float64)
+             .index_add(0, s_, (g_world[..., :, None] * x[..., None, :]).sum(1))
+             .index_add(0, d_, (diff[..., :, None] * g[..., None, :]).sum(1)))
+    ref_t = (torch.zeros((16, 3), dtype=torch.float64)
+             .index_add(0, s_, g_world.sum(1)).index_add(0, d_, -g_world.sum(1)))
+    assert float(ref_t[1:10].abs().min()) > 0 and float(ref_t[10:].abs().max()) == 0.0
+    for got, ref in ((R.grad, ref_R), (t.grad, ref_t)):
+        got = got.double().cpu()
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
 def test_sphere_tracing_a_grid_net_matches_the_cpu(dev):
     """Sphere tracing a GridNet on the card against the CPU: per step L interp
     forwards and a decode, max_iters + 1 steps."""
