@@ -2,13 +2,17 @@
 
 A mask is a dict from a module's (or ``GridAtlasParams``') parameter names to float tensors that
 broadcast against the parameter: 0 = frozen, 1 = train, other values scale
-that parameter's learning rate (see ``train/optim.py``).  A "tree" here is
-an ``nn.Module`` or anything else with ``named_parameters()`` (its named
-parameters), or a dict of tensors.
+that parameter's learning rate (see ``train/optim.py``).  The functions here
+and in ``models/`` that make masks return a :class:`Mask`, which also
+carries the set of names it trains, decided on the host when it is built.
+A mask is a value: to change one, build a new one (a tensor or an entry
+changed in place would leave its trained set stale).  A "tree" here is an ``nn.Module`` or
+anything else with ``named_parameters()`` (its named parameters), or a dict
+of tensors.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Dict, Iterable, Optional, Union
 
 import torch
 from torch import nn
@@ -26,28 +30,46 @@ def named_tensors(tree: Tree) -> Dict[str, torch.Tensor]:
     return dict(tree)
 
 
-def tree_full_mask(model: Tree, value: float = 1.0) -> Dict[str, torch.Tensor]:
+class Mask(dict):
+    """A mask (name -> float tensor) and ``trained``, the frozenset of the
+    names it trains: fixed when it is built, from the host values it was
+    built from, so reading it reads nothing from the device."""
+
+    def __init__(self, entries: Dict[str, torch.Tensor], trained: Iterable[str]):
+        super().__init__(entries)
+        self.trained = frozenset(trained)
+
+
+def tree_full_mask(model: Tree, value: float = 1.0) -> Mask:
     """Mask with every entry set to ``value`` (scalar tensors)."""
-    return {k: torch.tensor(float(value), dtype=torch.float32, device=p.device)
-            for k, p in named_tensors(model).items()}
+    named = named_tensors(model)
+    return Mask({k: torch.tensor(float(value), dtype=torch.float32, device=p.device)
+                 for k, p in named.items()}, named if float(value) != 0 else ())
 
 
-def tree_zero_mask(model: Tree) -> Dict[str, torch.Tensor]:
+def tree_zero_mask(model: Tree) -> Mask:
     return tree_full_mask(model, 0.0)
 
 
 def tree_scale_mask(mask, scale: float):
-    """Every entry of a mask times ``scale``."""
-    return {k: m * scale for k, m in mask.items()}
+    """Every entry of a mask times ``scale``: a :class:`Mask` training the
+    same names (none for a scale of 0) when ``mask`` is one."""
+    out = {k: m * scale for k, m in mask.items()}
+    if not isinstance(mask, Mask):
+        return out
+    return Mask(out, mask.trained if scale != 0 else ())
 
 
 def tree_combine_masks(*masks):
-    """Element-wise max of masks (union of trainable sets)."""
+    """Element-wise max of masks (union of trainable sets): a :class:`Mask`
+    training the union of their names when every one is a Mask."""
     out = dict(masks[0])
     for m in masks[1:]:
         for k, v in m.items():
             out[k] = torch.maximum(out[k], v)
-    return out
+    if not all(isinstance(m, Mask) for m in masks):
+        return out
+    return Mask(out, frozenset().union(*(m.trained for m in masks)))
 
 
 def relative_param_change(curr: Tree, prev: Tree) -> torch.Tensor:

@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from miso_tpu_torch.models.base import Mask
 from miso_tpu_torch.models.grid_net import (GridNet, _check_device, _settings,
                                             decoder_from_config)
 from miso_tpu_torch.ops import interp, se3
@@ -883,8 +884,8 @@ def grid_atlas_mask(params: GridAtlasParams, features: bool = False, stability: 
                     decoder: bool = False, submap_pose: bool = False, kf_pose: bool = False,
                     anchor_first_submap: bool = True, feature_lr: float = 1.0,
                     submap_pose_lr: float = 1.0, kf_pose_lr: float = 1.0,
-                    level: Optional[int] = None) -> Dict[str, torch.Tensor]:
-    """The train mask of an atlas, keyed by
+                    level: Optional[int] = None) -> Mask:
+    """The train mask of an atlas (``models/base.py::Mask``), keyed by
     :meth:`GridAtlasParams.named_parameters`: 0 freezes a tensor, a positive
     value trains it with the learning rate scaled by that value, so each
     group's rate is its multiplier on a masked Adam of base rate 1.
@@ -899,24 +900,27 @@ def grid_atlas_mask(params: GridAtlasParams, features: bool = False, stability: 
     L = params.num_levels
     sel = ([1.0 if l == level else 0.0 for l in range(L)]
            if level is not None and level < L else [1.0] * L)
-    sub = full(float(submap_pose) * submap_pose_lr, (params.capacity, 1))
+    sub_val = float(submap_pose) * submap_pose_lr
+    sub = full(sub_val, (params.capacity, 1))
     if anchor_first_submap and params.capacity > 0:
         sub[0] = 0.0
-    kf = full(float(kf_pose) * kf_pose_lr)
-    mask = {}
+    if params.capacity <= int(anchor_first_submap):
+        sub_val = 0.0   # no row left to train
+    values = {}   # name -> the entry's host value
     for name, _ in params.named_parameters():
         head, _, idx = name.partition(".")
         if head == "features":
-            mask[name] = full(float(features) * feature_lr * sel[int(idx)])
+            values[name] = float(features) * feature_lr * sel[int(idx)]
         elif head == "stability":
-            mask[name] = full(float(stability) * feature_lr * sel[int(idx)])
+            values[name] = float(stability) * feature_lr * sel[int(idx)]
         elif head == "decoder":
-            mask[name] = full(float(decoder))
+            values[name] = float(decoder)
         elif head.startswith("sub_"):
-            mask[name] = sub
+            values[name] = sub_val
         else:
-            mask[name] = kf
-    return mask
+            values[name] = float(kf_pose) * kf_pose_lr
+    return Mask({k: sub if k.startswith("sub_") else full(v) for k, v in values.items()},
+                (k for k, v in values.items() if v != 0))
 
 
 def node_centres(bound_w: np.ndarray, shape: Sequence[int], device) -> torch.Tensor:

@@ -40,7 +40,7 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from miso_tpu_torch.models.base import KeyframePoses
+from miso_tpu_torch.models.base import KeyframePoses, Mask
 from miso_tpu_torch.ops import interp, se3
 from miso_tpu_torch.ops.fused_decode import fused_interp_decode, mlp_decode
 from miso_tpu_torch.ops.mlp import mlp_init
@@ -337,8 +337,8 @@ def grid_net_mask(model: GridNet, features=True, stability=None,
                   decoder: Optional[bool] = None, pose: Optional[bool] = None,
                   pose_rows: Optional[torch.Tensor] = None,
                   level: Optional[int] = None, feature_lr: float = 1.0,
-                  pose_lr: float = 1.0) -> Dict[str, torch.Tensor]:
-    """Mask dict over ``model.named_parameters()``.
+                  pose_lr: float = 1.0) -> Mask:
+    """Mask over ``model.named_parameters()`` (``models/base.py::Mask``).
 
       * ``level=l`` -> only level-l feature and stability grids train
         (``level >= num_levels`` means all levels, the joint phase);
@@ -346,7 +346,9 @@ def grid_net_mask(model: GridNet, features=True, stability=None,
       * the decoder trains unless ``decoder_fixed``, and a VM grid's bases
         with it unless ``vm_bases_fixed``;
       * poses train when ``optimize_pose`` (or an explicit ``pose``);
-      * ``pose_rows`` is a (K,) float row mask for per-index locking.
+      * ``pose_rows`` is a (K,) float row mask for per-index locking; the
+        poses count as trained when their scale is not 0, whatever the rows
+        hold (a frozen row is left as it is by the masked update).
     """
     dev = model.bound.device
 
@@ -370,27 +372,27 @@ def grid_net_mask(model: GridNet, features=True, stability=None,
             return [feat_sel[l] * float(enabled[l]) for l in range(L)]
         return [feat_sel[l] * float(bool(enabled)) for l in range(L)]
 
-    mask = {}
+    values = {}   # name -> the entry's host value
     for l, s in enumerate(level_sel(features)):
         if model.grid_type == "VM":
             for k in model.features[l]:
-                mask[f"features.{l}.{k}"] = scalar(s * feature_lr)
+                values[f"features.{l}.{k}"] = s * feature_lr
             for k in model.vm_bases[l]:
-                mask[f"vm_bases.{l}.{k}"] = scalar(
-                    0.0 if model.vm_bases_fixed else float(bool(decoder)))
+                values[f"vm_bases.{l}.{k}"] = 0.0 if model.vm_bases_fixed else float(bool(decoder))
             continue
-        mask[f"features.{l}"] = scalar(s * feature_lr)
+        values[f"features.{l}"] = s * feature_lr
     for l, s in enumerate(level_sel(stability)):
-        mask[f"stability.{l}"] = scalar(s * feature_lr)
+        values[f"stability.{l}"] = s * feature_lr
     if model.decoder is not None:
         for i in range(len(model.decoder)):
-            mask[f"decoder.{i}"] = scalar(float(bool(decoder)))
+            values[f"decoder.{i}"] = float(bool(decoder))
+    mask = {k: scalar(v) for k, v in values.items()}
     pose_val = float(bool(pose)) * pose_lr
     if pose_rows is not None:
         rows = torch.as_tensor(pose_rows, dtype=torch.float32, device=dev)
         pose_mask = rows[:, None] * pose_val
     else:
         pose_mask = scalar(pose_val)
-    mask["rot_corr"] = pose_mask
-    mask["trans_corr"] = pose_mask
-    return mask
+    for k in ("rot_corr", "trans_corr"):
+        mask[k], values[k] = pose_mask, pose_val
+    return Mask(mask, (k for k, v in values.items() if v != 0))

@@ -25,7 +25,7 @@ from miso_tpu_torch.models.grid_net import create_grid_net
 from miso_tpu_torch.ops.diff import gradient3d
 from miso_tpu_torch.parallel.sharding import _replicated_names, shard_atlas
 from miso_tpu_torch.train.optim import masked_adam_update
-from miso_tpu_torch.train.trainer import TrainedLeaves, guarded_update
+from miso_tpu_torch.train.trainer import guarded_update, trained_leaves
 
 
 def build_scene_stack(cfg_model: Dict, bounds: Sequence[np.ndarray],
@@ -99,11 +99,12 @@ def scene_tsdf_loss(params, batches: Dict, key=None, sdf_weight=3e3, sign_weight
     return total
 
 
-def scene_parallel_grads(params, batches: Dict, key, scene_loss_fn: Callable = scene_tsdf_loss,
-                         **loss_kwargs):
+def scene_parallel_grads(params, batches: Dict, key, names: Sequence[str],
+                         scene_loss_fn: Callable = scene_tsdf_loss, **loss_kwargs):
     """(total, gradients by parameter name) of the stack's objective
     sum(loss_s * active_s) / max(sum(active_s), 1) over every scene (the
-    sums crossing a shard's scene axis): each scene's grid gradients its
+    sums crossing a shard's scene axis), for the parameters ``names`` alone
+    (every rank giving the same names): each scene's grid gradients its
     own, the decoder's summed over the scenes of every rank."""
     named = dict(params.named_parameters())
     ax = params.slot_axis
@@ -112,11 +113,12 @@ def scene_parallel_grads(params, batches: Dict, key, scene_loss_fn: Callable = s
     if ax is not None:
         sums = ax.psum(sums)
     tl = sums[0] / torch.clamp(sums[1], min=1.0)
-    grads = torch.autograd.grad(tl, list(named.values()), allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(named.items(), grads)}
+    if not names:
+        return tl, {}
+    grads = torch.autograd.grad(tl, [named[k] for k in names], allow_unused=True)
+    grads = {k: torch.zeros_like(named[k]) if g is None else g for k, g in zip(names, grads)}
     if ax is not None:
-        ax.sum_([grads[k] for k in _replicated_names(params)])
+        ax.sum_([grads[k] for k in _replicated_names(params) if k in grads])
     return tl, grads
 
 
@@ -125,18 +127,19 @@ def scene_parallel_decoder_step(scene_loss_fn: Callable = scene_tsdf_loss, **los
     :func:`shard_scene_stack` shard).
 
     step(params, opt_state, batches, key, mask, lr) -> (params, opt_state,
-    total): :func:`scene_parallel_grads`, then the NaN guard and masked
-    Adam, in place.  ``batches`` hold
-    the (S, N, ...) samples of the scenes ``params`` holds
-    (:func:`stack_scene_batches`).
+    total): :func:`scene_parallel_grads` of the leaves the mask trains
+    (``train/trainer.py::trained_leaves``), then the NaN guard and masked
+    Adam of those, in place.  ``batches`` hold the (S, N, ...) samples of
+    the scenes ``params`` holds (:func:`stack_scene_batches`).
     """
-    leaves = TrainedLeaves()
 
     def step(params, opt_state, batches, key, mask, lr):
-        tl, grads = scene_parallel_grads(params, batches, key, scene_loss_fn, **loss_kwargs)
         named = dict(params.named_parameters())
-        guarded_update(masked_adam_update, *leaves.select(named, [grads[k] for k in named], mask),
-                       opt_state, mask, lr, tl)
+        names = trained_leaves(named, mask)
+        tl, grads = scene_parallel_grads(params, batches, key, names, scene_loss_fn,
+                                         **loss_kwargs)
+        guarded_update(masked_adam_update, {k: named[k] for k in names},
+                       [grads[k] for k in names], opt_state, mask, lr, tl)
         return params, opt_state, tl.detach()
 
     return step

@@ -46,7 +46,7 @@ import torch.distributed as dist
 from miso_tpu_torch.losses.common import batch_axis, total_loss
 from miso_tpu_torch.models.base import named_tensors
 from miso_tpu_torch.train.optim import masked_adam_update
-from miso_tpu_torch.train.trainer import TrainedLeaves, guarded_update
+from miso_tpu_torch.train.trainer import guarded_update, trained_leaves
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
@@ -245,25 +245,28 @@ def data_parallel_train_step(loss_fn: Callable, mesh: Mesh, axis: str = "data"):
         (``masked_mean``, ``eikonal_loss_at`` with a select mask) sums its
         numerator and denominator over the ranks, and the eikonal's uniform
         points are drawn for the global batch, each rank keeping its rows;
-      * the gradients are summed over the ranks (one all-reduce).
+      * the gradients of the leaves the mask trains
+        (``train/trainer.py::trained_leaves``) are summed over the ranks (one
+        all-reduce); autograd is asked for no other.
 
-    ``key`` is a ``torch.Generator`` in the same state on every rank.  The
+    ``key`` is a ``torch.Generator`` in the same state on every rank, and
+    ``mask`` the same mask, so every rank reduces the same gradients.  The
     NaN guard reads the global total, so every rank takes or skips the step.
     """
     ax = mesh.axis(axis)
-    leaves = TrainedLeaves()
 
     def step(model, opt_state, batch, key, mask, lr):
         params = named_tensors(model)
+        trained = {k: params[k] for k in trained_leaves(params, mask)}
         with batch_axis(ax):
             loss_dict = loss_fn(model, batch, key)
         names = list(loss_dict)
         terms = ax.psum(torch.stack([torch.mean(loss_dict[k]) for k in names])) / ax.size
         tl = terms.sum()
-        grads = torch.autograd.grad(tl, list(params.values()), allow_unused=True)
-        ax.sum_([g for g in grads if g is not None])
-        guarded_update(masked_adam_update, *leaves.select(params, grads, mask), opt_state, mask,
-                       lr, tl)
+        if trained:
+            grads = torch.autograd.grad(tl, list(trained.values()), allow_unused=True)
+            ax.sum_([g for g in grads if g is not None])
+            guarded_update(masked_adam_update, trained, grads, opt_state, mask, lr, tl)
         return model, opt_state, tl.detach(), {k: terms[i].detach() for i, k in enumerate(names)}
 
     return step
@@ -359,28 +362,31 @@ def submap_parallel_fusion_step(loss_fn: Callable, mesh: Mesh, submap_axis: str 
     and the shared leaves' (decoder, keyframe poses) are the same on every
     rank of the submap axis (averaged there, so the copies stay equal bit
     for bit).  Over the data axis the terms are averaged and every gradient
-    summed, as in :func:`data_parallel_train_step`.
+    summed, as in :func:`data_parallel_train_step`.  Only the leaves the
+    mask trains (``train/trainer.py::trained_leaves``) are differentiated,
+    reduced and updated; every rank holds the same mask.
     """
     sub = mesh.axis(submap_axis)
     data = mesh.axis(data_axis) if data_axis and data_axis in mesh.axis_names else None
-    leaves = TrainedLeaves()
 
     def step(params, opt_state, batch, key, mask, lr):
         named = dict(params.named_parameters())
+        trained = {k: named[k] for k in trained_leaves(named, mask)}
         if data is None:
             tl = total_loss(loss_fn(params, batch, key))
         else:
             with batch_axis(data):
                 loss_dict = loss_fn(params, batch, key)
             tl = data.psum(total_loss(loss_dict)) / data.size
-        grads = list(torch.autograd.grad(tl, list(named.values()), allow_unused=True))
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(named.values(), grads)]
-        if data is not None:
-            data.sum_(grads)
-        shared = set(_replicated_names(params))
-        sub.sum_([g for k, g in zip(named, grads) if k in shared], mean=True)
-        guarded_update(masked_adam_update, *leaves.select(named, grads, mask), opt_state, mask,
-                       lr, tl)
+        if trained:
+            grads = torch.autograd.grad(tl, list(trained.values()), allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(trained.values(), grads)]
+            if data is not None:
+                data.sum_(grads)
+            shared = set(_replicated_names(params))
+            sub.sum_([g for k, g in zip(trained, grads) if k in shared], mean=True)
+            guarded_update(masked_adam_update, trained, grads, opt_state, mask, lr, tl)
         return params, opt_state, tl.detach()
 
     return step

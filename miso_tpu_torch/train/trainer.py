@@ -23,14 +23,13 @@ from __future__ import annotations
 
 import os
 import time
-import weakref
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from miso_tpu_torch.losses.common import total_loss
-from miso_tpu_torch.models.base import (masked_select_tree, named_tensors,
+from miso_tpu_torch.models.base import (Mask, masked_select_tree, named_tensors,
                                         relative_param_change, tree_full_mask)
 from miso_tpu_torch.train.optim import (masked_adam_init, masked_adam_update,
                                         masked_sgd_init, masked_sgd_update)
@@ -39,62 +38,18 @@ from miso_tpu_torch.utils.profiling import span
 _UPDATES = {"adam": masked_adam_update, "sgd": masked_sgd_update}
 
 
-class TrainedLeaves:
-    """Which leaves a mask trains, read from the mask's tensors once.
-
-    ``leaves(names, mask)`` -> the names, in order, whose mask entry has an
-    element other than 0 (a Python number, a numpy array, a scalar or a
-    ``pose_rows`` tensor).  Only an entry of zeros is left out: there masked
-    Adam and SGD change neither the leaf nor its moments.  A number or array
-    is looked at on the host every call.  A tensor's flag is kept, beside a
-    weak reference to the tensor and its ``_version``, for as long as the
-    tensor lives: the same tensor unchanged is not read again, and one
-    replaced in the dict or written in place (``fill_``, a view's write) is.
-    The tensors not yet known are read together in one device-to-host copy,
-    inside the span ``miso.step.mask``; ``.reads`` counts the copies.  A mask
-    edited behind torch's version counter (through ``.data`` or a numpy
-    view) is not seen.
-    """
-
-    def __init__(self):
-        self.reads = 0
-        self._flags: Dict[int, tuple] = {}   # id -> (weakref, _version, flag)
-
-    def _forget(self, key: int, ref):
-        if self._flags.get(key, (None,))[0] is ref:
-            del self._flags[key]
-
-    def __call__(self, names, mask) -> tuple:
-        flags = {}
-        unread = []
-        for k in names:
-            m = mask[k]
-            if not isinstance(m, torch.Tensor):
-                flags[k] = bool(np.any(np.asarray(m) != 0))
-                continue
-            e = self._flags.get(id(m))
-            if e is not None and e[0]() is m and e[1] == m._version:
-                flags[k] = e[2]
-            else:
-                unread.append((k, m))
-        if unread:
-            with span("miso.step.mask"):
-                dev = unread[0][1].device
-                read = torch.stack([torch.any(m != 0).to(dev) for _, m in unread]).tolist()
-            self.reads += 1
-            for (k, m), f in zip(unread, read):
-                flags[k] = f
-                key = id(m)
-                ref = weakref.ref(m, lambda r, key=key: self._forget(key, r))
-                self._flags[key] = (ref, m._version, f)
-        return tuple(k for k in names if flags[k])
-
-    def select(self, params, grads, mask):
-        """``params`` (name -> tensor) and ``grads`` (in the same order) cut
-        to the leaves ``mask`` trains, for :func:`guarded_update`."""
-        keep = set(self(params, mask))
-        return ({k: p for k, p in params.items() if k in keep},
-                [g for k, g in zip(params, grads) if k in keep])
+def trained_leaves(names, mask) -> List[str]:
+    """The names, in order, that ``mask`` trains, read from nothing on the
+    device: for a ``models/base.py::Mask`` its ``trained`` set; for any
+    other dict an entry of host numbers (a Python number, a numpy array) by
+    its value, and a tensor entry as trained.  Masked Adam and SGD leave a
+    zero element of a leaf, its moments and its step count as they are, so
+    a tensor of zeros counted as trained changes no number: it costs a
+    gradient the update ignores."""
+    if isinstance(mask, Mask):
+        return [k for k in names if k in mask.trained]
+    return [k for k in names
+            if isinstance(mask[k], torch.Tensor) or np.any(np.asarray(mask[k]) != 0)]
 
 
 def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
@@ -106,15 +61,13 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     (model, opt_state, total, loss_dict) updates the model's parameters and
     the optimizer state in place and returns them.
 
-    Only the leaves the mask trains (:class:`TrainedLeaves`) take part in the
-    backward and the update: autograd is asked for their gradients alone, so
-    it leaves out every node that leads only to frozen leaves, and a frozen
-    leaf, its moments and its step count stay as they are, as the full
-    masked update would leave them.  With no leaf trained no backward runs;
-    the loss is still computed and returned.  The step reads which leaves a
-    mask trains once for each mask tensor it has not seen unchanged
-    (``step.mask_reads`` counts the reads); ``step.leaves_skipped`` counts
-    the frozen leaves left out, over every step.
+    Only the leaves the mask trains (:func:`trained_leaves`) take part in
+    the backward and the update: autograd is asked for their gradients
+    alone, so it leaves out every node that leads only to frozen leaves, and
+    a frozen leaf, its moments and its step count stay as they are, as the
+    full masked update would leave them.  With no leaf trained no backward
+    runs; the loss is still computed and returned.  ``step.leaves_skipped``
+    counts the frozen leaves left out, over every step.
 
     NaN guard: a non-finite total zeroes the effective mask, so the step
     changes no parameter and no moment; non-finite gradient entries become
@@ -122,21 +75,18 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
     read of the loss.
 
     A step opens the span ``miso.step`` and, inside it in turn,
-    ``miso.step.mask`` (only when a mask is read), ``miso.step.loss``,
-    ``miso.step.grad`` and ``miso.step.update`` (the last two only when a
-    leaf trains; ``utils/profiling.py::span``: marks for a recording
-    profiler, nothing otherwise).
+    ``miso.step.loss``, ``miso.step.grad`` and ``miso.step.update`` (the
+    last two only when a leaf trains; ``utils/profiling.py::span``: marks
+    for a recording profiler, nothing otherwise).
     """
     if optimizer not in _UPDATES:
         raise ValueError(f"Invalid optimizer: {optimizer}")
     update = _UPDATES[optimizer]
-    leaves = TrainedLeaves()
 
     def step(model, opt_state, batch, key, mask, lr):
         with span("miso.step"):
             params = named_tensors(model)
-            trained = {k: params[k] for k in leaves(params, mask)}
-            step.mask_reads = leaves.reads
+            trained = {k: params[k] for k in trained_leaves(params, mask)}
             step.leaves_skipped += len(params) - len(trained)
             with span("miso.step.loss"):
                 loss_dict = loss_fn(model, batch, key)
@@ -149,14 +99,13 @@ def make_train_step(loss_fn: Callable, optimizer: str = "adam"):
             return (model, opt_state, tl.detach(),
                     {k: v.detach() for k, v in loss_dict.items()})
 
-    step.mask_reads = 0
     step.leaves_skipped = 0
     return step
 
 
 def guarded_update(update, params, grads, opt_state, mask, lr, total):
     """The step's update of ``params`` (name -> tensor: the leaves ``mask``
-    trains, :meth:`TrainedLeaves.select`) from ``grads`` (in the same order;
+    trains, :func:`trained_leaves`) from ``grads`` (in the same order;
     None for an unused tensor): non-finite gradient entries made finite, the
     mask zeroed where ``total`` is not finite.  A leaf left out, and its
     optimizer state, are not touched."""
@@ -192,8 +141,7 @@ def make_train_burst_pool(loss_fn: Callable, optimizer: str = "adam"):
     :func:`pool_batch_rows` of every pool field (``pool``: name ->
     (num_kfs, n_max, ...)), with ``sample_frame_ids`` = the selected
     keyframe of each row and unit ``weights``.  Nothing reads the device
-    from the host but the step's one read of a mask it has not seen
-    (:class:`TrainedLeaves`; the burst's step is kept across bursts).
+    from the host.
     """
     step = make_train_step(loss_fn, optimizer)
 
@@ -233,7 +181,7 @@ def make_train_step_pool(loss_fn: Callable, optimizer: str = "adam"):
     both from ``generator`` on the pool's device -- with ``sample_frame_ids`` = the keyframe of each
     row and unit ``weights``, then :func:`make_train_step`'s update.
     ``pool``: name -> (num_kfs, n_max, ...).  Nothing reads the device from
-    the host but the step's one read of a mask it has not seen.
+    the host.
     """
     step = make_train_step(loss_fn, optimizer)
 

@@ -21,7 +21,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from miso_tpu_torch.models.base import tree_full_mask
 from miso_tpu_torch.models.encoder import encoder_pretrain_loss
 from miso_tpu_torch.train.optim import masked_adam_init, masked_adam_update
 
@@ -52,8 +51,7 @@ def pretrain_encoders(levels, grids: Sequence, datasets: Sequence, epochs: int,
     for level in range(len(levels)):
         prefix = f"{level}."
         target = [k for k in names if k.startswith(prefix)]
-        mask = tree_full_mask(levels, 0.0)
-        mask.update({k: torch.tensor(1.0, device=dev) for k in target})
+        mask = {k: torch.tensor(float(k in target), device=dev) for k in names}
         opt = masked_adam_init(levels)
         gen = torch.Generator(device=dev).manual_seed(level)
         losses = []

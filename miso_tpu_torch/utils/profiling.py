@@ -11,11 +11,10 @@ memsets and copies it launched.  With no profiler recording it returns one
 shared no-op context: one flag check, nothing allocated, formatted or
 recorded.  The names and the thread each opens on:
 
-  ``miso.step``, ``.mask``, ``.loss``, ``.grad``, ``.update``
-      ``train/trainer.py::make_train_step``'s step, the read of which
-      leaves a new mask trains (``TrainedLeaves``: once a mask), its loss,
-      its ``autograd.grad`` and its NaN-guarded optimizer update of the
-      trained leaves (caller's thread).  A CUDA backward runs on PyTorch's
+  ``miso.step``, ``.loss``, ``.grad``, ``.update``
+      ``train/trainer.py::make_train_step``'s step, its loss, its
+      ``autograd.grad`` and its NaN-guarded optimizer update of the trained
+      leaves (caller's thread).  A CUDA backward runs on PyTorch's
       autograd worker thread: its kernels lie in ``miso.step.grad`` by
       time, not by scope.
   ``miso.align``, ``.precompute``, ``.intersect``, ``.ctx``, ``.steps``

@@ -71,7 +71,8 @@ def scene_grads(inp, mesh, out):
     params = shard_scene_stack(params, mesh)
     rows = mesh.axis("scene").rows(inp["S"])
     batches = stack_scene_batches(inp["batches"], mesh)
-    tl, grads = scene_parallel_grads(params, batches, None, trunc_dist=inp["trunc_dist"],
+    names = [k for k, _ in params.named_parameters()]
+    tl, grads = scene_parallel_grads(params, batches, None, names, trunc_dist=inp["trunc_dist"],
                                      uniforms=torch.as_tensor(inp["uniforms"][rows]))
     out["scene/loss"] = np_(tl)
     for k, g in grads.items():

@@ -29,9 +29,10 @@ two packages draw different random numbers:
   * ``submap_parallel_fusion_step`` over (submap 2 x data 1) and (1 x 2)
     meshes against the unsharded step;
   * ``initialize`` from the three environment variables;
-  * on a one-rank mesh in the test's own process, the data-parallel step
-    with a fixed decoder leaves the decoder's state untouched and equals
-    the update over every leaf;
+  * on a one-rank mesh in the test's own process, the data-parallel, the
+    submap-parallel fusion and the scene-parallel decoder steps with a
+    frozen decoder leave the decoder's state untouched and equal the update
+    over every leaf;
   * ``train_decoder``'s scene-parallel pretraining on 2 ranks against 1,
     and its CLI, whose ``.npz`` loads as ``decoder.pretrained_model`` in
     both packages.
@@ -523,43 +524,102 @@ def test_one_rank_mesh_without_a_process_group():
         make_mesh(2)
 
 
-def test_one_rank_step_leaves_a_frozen_decoder_alone(monkeypatch):
-    """The data-parallel step on a one-rank mesh, decoder fixed: the
-    decoder's parameters and Adam state stay untouched, and every leaf and
-    moment equals the update over every leaf, bit for bit."""
+def _sdf_batch(r, n, num_ids=None):
+    b = {"coords": r.uniform(-0.9, 0.9, (n, 3)), "weights": np.ones((n, 1)),
+         "sdf": r.uniform(-0.2, 0.2, (n, 1)), "sdf_valid": np.ones((n, 1)),
+         "sdf_signs": r.choice([-1.0, 0.0, 1.0], (n, 1))}
+    if num_ids is not None:
+        b["coords_frame"] = b.pop("coords")
+        b["sample_frame_ids"] = r.integers(0, num_ids, (n,)).astype(np.int32)
+    return {k: v if v.dtype == np.int32 else v.astype(np.float32) for k, v in b.items()}
+
+
+def _one_rank_data_parallel():
     from miso_tpu_torch.losses.miso import make_loss, mapping_loss
     from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
     from miso_tpu_torch.parallel import sharding
-    from miso_tpu_torch.train.optim import masked_adam_init
-    from miso_tpu_torch.train.trainer import TrainedLeaves
 
     cfg = copy.deepcopy(RATIO_CFG)
     cfg["decoder"]["fix"] = True
-    loss_fn = make_loss(mapping_loss, **dict(RATIO_LOSS, weight_eik=0.0))
+    model = create_grid_net(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
+    mask = grid_net_mask(model, level=model.num_levels, pose=False)
     r = np.random.default_rng(2)
-    N = 512
-    batches = [{"coords_frame": torch.as_tensor(r.uniform(-0.9, 0.9, (N, 3)), dtype=torch.float32),
-                "sample_frame_ids": torch.as_tensor(r.integers(0, 4, (N,)), dtype=torch.int32),
-                "weights": torch.ones((N, 1)),
-                "sdf": torch.as_tensor(r.uniform(-0.2, 0.2, (N, 1)), dtype=torch.float32),
-                "sdf_valid": torch.ones((N, 1)), "sdf_signs": torch.zeros((N, 1))}
+    batches = [{k: torch.as_tensor(v) for k, v in _sdf_batch(r, 512, 4).items()}
                for _ in range(3)]
+    step = sharding.data_parallel_train_step(
+        make_loss(mapping_loss, **dict(RATIO_LOSS, weight_eik=0.0)), sharding.make_mesh())
+    return sharding, model, mask, batches, lambda m, o, b: step(m, o, b, None, mask, 1e-2)[:2]
+
+
+def _one_rank_submap_parallel_fusion():
+    from miso_tpu_torch.losses.fusion import fusion_loss
+    from miso_tpu_torch.models.grid_atlas import GridAtlas, grid_atlas_mask
+    from miso_tpu_torch.parallel import sharding
+
+    atlas = GridAtlas(FUSION_CFG, max_kfs_per_submap=1, device="cpu")
+    for s in range(2):
+        atlas.add_submap(np.array([[-1, 1]] * 3, np.float32),
+                         tws=np.array([0.5 * s, 0, 0], np.float32))
+        atlas.add_kf()
+    params = atlas.params
+    g = torch.Generator().manual_seed(7)
+    with torch.no_grad():
+        for f in params.features:
+            f.copy_(0.1 * torch.randn(f.shape, generator=g))
+    params.requires_grad_()
+    mask = grid_atlas_mask(params, features=True, stability=True, kf_pose=True,
+                           submap_pose=True)
+    r = np.random.default_rng(7)
+    batches = [{k: torch.as_tensor(v) for k, v in _sdf_batch(r, 256, 2).items()}
+               for _ in range(3)]
+    step = sharding.submap_parallel_fusion_step(
+        lambda p, b, k: fusion_loss(p, b, k, **FUSION_LOSS),
+        sharding.make_mesh(1, ("submap", "data"), (1, 1)))
+    return sharding, params, mask, batches, lambda m, o, b: step(m, o, b, None, mask, 1e-2)[:2]
+
+
+def _one_rank_scene_parallel_decoder():
+    from miso_tpu_torch.models.grid_atlas import grid_atlas_mask
+    from miso_tpu_torch.parallel import pretrain
+
+    bounds = [np.array([[-1, 1], [-1, 1], [-1, 1]], np.float32),
+              np.array([[-1, 1.5], [-1, 1], [-1, 0.5]], np.float32)]
+    params = pretrain.build_scene_stack(SCENE_CFG, bounds, torch.Generator().manual_seed(5),
+                                        device="cpu").params
+    mask = grid_atlas_mask(params, features=True, stability=True, anchor_first_submap=False)
+    r = np.random.default_rng(5)
+    batches = [pretrain.stack_scene_batches([_sdf_batch(r, 256) for _ in bounds])
+               for _ in range(3)]
+    step = pretrain.scene_parallel_decoder_step(trunc_dist=0.15)
+    gen = torch.Generator().manual_seed(2)
+    return pretrain, params, mask, batches, lambda m, o, b: step(m, o, b, gen, mask, 1e-2)[:2]
+
+
+ONE_RANK_STEPS = {"data_parallel": _one_rank_data_parallel,
+                  "submap_parallel_fusion": _one_rank_submap_parallel_fusion,
+                  "scene_parallel_decoder": _one_rank_scene_parallel_decoder}
+
+
+@pytest.mark.parametrize("kind", sorted(ONE_RANK_STEPS))
+def test_one_rank_step_leaves_a_frozen_decoder_alone(kind, monkeypatch):
+    """A sharded step on a one-rank mesh, decoder frozen by its mask: the
+    decoder's parameters and Adam state stay untouched, and every leaf and
+    moment equals the update over every leaf, bit for bit."""
+    from miso_tpu_torch.train.optim import masked_adam_init
 
     def run(full):
-        model = create_grid_net(cfg, generator=torch.Generator().manual_seed(3), device="cpu")
-        start = {k: v.detach().clone() for k, v in model.named_parameters()}
-        opt = masked_adam_init(model)
-        state = {k: (model.get_parameter(k), opt.m[k], opt.v[k], opt.step[k]) for k in opt.m}
-        versions = {k: [t._version for t in ts] for k, ts in state.items()}
-        mask = grid_net_mask(model, level=model.num_levels, pose=False)
         with monkeypatch.context() as mp:
+            module, model, mask, batches, step = ONE_RANK_STEPS[kind]()
             if full:
                 # The guarded update over every leaf, the frozen ones included.
-                mp.setattr(TrainedLeaves, "select",
-                           lambda self, params, grads, mask: (params, list(grads)))
-            step = sharding.data_parallel_train_step(loss_fn, sharding.make_mesh())
+                mp.setattr(module, "trained_leaves", lambda names, mask: list(names))
+            named = dict(model.named_parameters())
+            start = {k: v.detach().clone() for k, v in named.items()}
+            opt = masked_adam_init(model)
+            state = {k: (named[k], opt.m[k], opt.v[k], opt.step[k]) for k in opt.m}
+            versions = {k: [t._version for t in ts] for k, ts in state.items()}
             for b in batches:
-                model, opt, _, _ = step(model, opt, b, None, mask, 1e-2)
+                model, opt = step(model, opt, b)
         return dict(model.named_parameters()), opt, start, state, versions
 
     params, opt, start, state, versions = run(full=False)

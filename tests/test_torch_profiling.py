@@ -6,8 +6,7 @@ repaired idle share of ``breakdown``, on the CPU.
   patched to raise.
 * Under ``torch.profiler``, the train step's spans land in the Chrome trace
   as ``user_annotation`` events: ``miso.step`` holding, in order,
-  ``miso.step.mask`` (the first step on a mask only), ``miso.step.loss``,
-  ``miso.step.grad`` and ``miso.step.update``.
+  ``miso.step.loss``, ``miso.step.grad`` and ``miso.step.update``.
 * Each kernel launcher opens its ``miso.launch.*`` span before it checks
   its arguments (CPU tensors are refused inside the span).
 * ``busy_us``, the union of intervals that ``breakdown``'s idle share now
@@ -80,16 +79,15 @@ def test_span_under_a_profiler_is_a_record_function(tmp_path):
 
 
 def test_train_step_spans_nest_in_order(tmp_path):
-    """Two steps on one mask: only the first reads it (``miso.step.mask``)."""
+    """Two steps on one mask, the first and the second alike."""
     model, opt, batch, step, mask = small_step()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(2):
             step(model, opt, batch, None, mask, 1e-2)
     got = annotations(prof, tmp_path)
     phases = ["miso.step.loss", "miso.step.grad", "miso.step.update"]
-    assert [a[0] for a in got] == (["miso.step", "miso.step.mask"] + phases
-                                   + ["miso.step"] + phases)
-    for (_, t0, t1, tid), *inner in (got[:5], got[5:]):
+    assert [a[0] for a in got] == (["miso.step"] + phases) * 2
+    for (_, t0, t1, tid), *inner in (got[:4], got[4:]):
         prev_end = t0
         for name, a, b, thread in inner:
             assert thread == tid, name

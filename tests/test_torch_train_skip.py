@@ -1,5 +1,5 @@
 """The train step trains only the leaves its mask trains
-(``miso_tpu_torch/train/trainer.py::make_train_step``, ``TrainedLeaves``),
+(``miso_tpu_torch/train/trainer.py::make_train_step``, ``trained_leaves``),
 on the CPU.
 
 * Parity: five steps of the step against the full update written out here
@@ -9,18 +9,13 @@ on the CPU.
   poses: the mapping cell's joint mask, one level (the coordinate phase),
   the tracker's pose rows, every leaf frozen (no backward runs, the loss is
   still returned), a non-finite total (the guard), and SGD.
-* Counters: ``step.mask_reads`` reads a mask's tensors once and again only
-  when an entry is written in place or a new mask arrives; a mask of Python
-  numbers needs no read; ``step.leaves_skipped`` counts the frozen leaves of
-  every step; after the read the step reads nothing from its tensors on
-  the host.
-* ``TrainedLeaves`` alone: a mask of 100 tensors is read once, and the
-  reader keeps no mask alive; round-robin decoder pretraining reads each
-  scene's mask once a stage.
+* The trained set: every mask function's ``Mask.trained`` is the set of
+  names whose entry has an element other than 0.  ``step.leaves_skipped``
+  counts the frozen leaves of every step; a mask of Python numbers trains
+  the same leaves; no step, the first on a new mask included, reads a
+  tensor on the host; round-robin decoder pretraining trains the same
+  leaves and reads nothing.
 """
-import gc
-import weakref
-
 import numpy as np
 import pytest
 import torch
@@ -28,10 +23,12 @@ import torch
 from _torch_port import mapping_batch, small_cfg, to_torch
 from miso_tpu_torch.losses.common import total_loss
 from miso_tpu_torch.losses.miso import make_loss, mapping_loss
+from miso_tpu_torch.models import base
 from miso_tpu_torch.models.base import tree_zero_mask
+from miso_tpu_torch.models.grid_atlas import GridAtlas, grid_atlas_mask
 from miso_tpu_torch.models.grid_net import create_grid_net, grid_net_mask
 from miso_tpu_torch.train import optim
-from miso_tpu_torch.train.trainer import TrainedLeaves, make_train_step
+from miso_tpu_torch.train.trainer import make_train_step
 
 LOSS = dict(loss_type="L2", weight_sdf=1.0, weight_eik=0.0, weight_fs=0.1, trunc_dist=0.15)
 NUM_POSES = 372
@@ -151,7 +148,6 @@ def test_step_matches_the_full_update_bitwise(case, monkeypatch):
     # A frozen leaf and its state are never written.
     assert {k: leaf_versions(model, opt, k) for k in frozen} == versions
     assert step.leaves_skipped == STEPS * (12 - TRAINED[case])
-    assert step.mask_reads == 1
     moved = [k for k, p in model.named_parameters() if not torch.equal(p, start[k])]
     assert moved == MOVED[case]
 
@@ -167,36 +163,9 @@ def _one_mask_run(mask_of, steps=10):
     return step, model, opt, mask, batches
 
 
-def test_one_mask_is_read_once_and_skips_eight_leaves_a_step():
+def test_one_mask_skips_eight_leaves_a_step():
     step, *_ = _one_mask_run(MASKS["joint"])
-    assert step.mask_reads == 1
     assert step.leaves_skipped == 8 * 10
-
-
-def test_a_mask_written_in_place_is_read_again_and_its_leaf_then_stays():
-    step, model, opt, mask, batches = _one_mask_run(MASKS["joint"], steps=3)
-    mask["features.1"].fill_(0)
-    before = {k: v.detach().clone() for k, v in [("p", model.features[1]),
-                                                 ("m", opt.m["features.1"]),
-                                                 ("v", opt.v["features.1"]),
-                                                 ("step", opt.step["features.1"])]}
-    for i in range(3):
-        step(model, opt, batches[i % 2], None, mask, LR)
-    assert step.mask_reads == 2
-    assert step.leaves_skipped == 8 * 3 + 9 * 3
-    after = {"p": model.features[1], "m": opt.m["features.1"], "v": opt.v["features.1"],
-             "step": opt.step["features.1"]}
-    for k, v in before.items():
-        assert_same_bits(after[k], v, k)
-
-
-def test_a_new_mask_with_new_tensors_is_read_again():
-    step, model, opt, mask, batches = _one_mask_run(MASKS["joint"], steps=2)
-    step(model, opt, batches[0], None, MASKS["level"](model), LR)
-    assert step.mask_reads == 2
-    # The first mask's tensors are still known: going back reads nothing.
-    step(model, opt, batches[1], None, mask, LR)
-    assert step.mask_reads == 2
 
 
 def test_a_mask_of_python_numbers_needs_no_read_and_trains_the_same():
@@ -205,7 +174,6 @@ def test_a_mask_of_python_numbers_needs_no_read_and_trains_the_same():
 
     step, model, opt, *_ = _one_mask_run(numbers, steps=4)
     ref_step, ref_model, ref_opt, *_ = _one_mask_run(MASKS["joint"], steps=4)
-    assert step.mask_reads == 0 and ref_step.mask_reads == 1
     assert step.leaves_skipped == ref_step.leaves_skipped == 8 * 4
     ref_params = dict(ref_model.named_parameters())
     for k, p in model.named_parameters():
@@ -213,56 +181,124 @@ def test_a_mask_of_python_numbers_needs_no_read_and_trains_the_same():
         assert_same_bits(opt.m[k], ref_opt.m[k], k)
 
 
-def test_after_the_first_read_the_step_reads_nothing_on_the_host(monkeypatch):
-    """No synchronize and no host read of a tensor once the mask is known
-    (the read's span, ``miso.step.mask``, is held to the first step in
-    ``tests/test_torch_profiling.py``)."""
-    step, model, opt, mask, batches = _one_mask_run(MASKS["joint"], steps=1)
-
+def _refuse_host_reads(monkeypatch):
     def host_read(*args, **kwargs):
         raise AssertionError("the step read a tensor on the host")
 
     for attr in ("item", "tolist", "cpu", "numpy", "__bool__", "__float__", "__int__"):
         monkeypatch.setattr(torch.Tensor, attr, host_read)
     monkeypatch.setattr(torch.cuda, "synchronize", host_read)
-    for b in batches:
-        step(model, opt, b, None, mask, LR)
-    monkeypatch.undo()
-    assert step.mask_reads == 1
 
 
-def test_a_large_mask_is_read_once_and_no_mask_is_kept_alive():
-    leaves = TrainedLeaves()
-    names = [f"w{i}" for i in range(100)]
-    mask = {k: torch.full((3, 1), float(i % 2)) for i, k in enumerate(names)}
-    for _ in range(3):
-        assert leaves(names, mask) == tuple(names[1::2])
-    assert leaves.reads == 1
-    for _ in range(4):
-        assert leaves(names, {k: torch.tensor(1.0) for k in names}) == tuple(names)
-    assert leaves.reads == 5
-    assert leaves(names, mask) == tuple(names[1::2]) and leaves.reads == 5
-    dead = weakref.ref(mask["w1"])
-    del mask
-    gc.collect()
-    assert dead() is None
+def test_no_step_the_first_included_reads_the_device(monkeypatch):
+    """No synchronize and no host read of a tensor in any step, the first
+    on a new ``grid_net_mask`` mask and the first on another mask
+    included."""
+    model, batches = model_and_batches(n=512, steps=2)
+    step = make_train_step(make_loss(mapping_loss, **LOSS), "adam")
+    opt = optim.masked_adam_init(model)
+    masks = [MASKS["joint"](model), MASKS["level"](model)]
+    start = model.features[0].detach().clone()
+    with monkeypatch.context() as mp:
+        _refuse_host_reads(mp)
+        for mask in masks:
+            for b in batches:
+                step(model, opt, b, None, mask, LR)
+    assert step.leaves_skipped == 8 * 2 + 10 * 2
+    assert not torch.equal(model.features[0].detach(), start)
 
 
-def test_round_robin_pretraining_reads_each_mask_once_a_stage(monkeypatch):
+def _grid(fix=False):
+    return create_grid_net(small_cfg(num_poses=6, fix=fix),
+                           generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+def _vm_grid():
+    cfg = small_cfg(num_poses=4)
+    cfg["grid"] = {**cfg["grid"], "type": "VM", "VM": {"rank": 2, "fix_bases": False}}
+    return create_grid_net(cfg, generator=torch.Generator().manual_seed(0), device="cpu")
+
+
+def _atlas_params():
+    atlas = GridAtlas(small_cfg(num_poses=1), max_kfs_per_submap=2, device="cpu")
+    for _ in range(2):
+        atlas.add_submap(np.array([[-1.0, 1.0]] * 3, np.float32))
+        atlas.add_kf()
+    return atlas.params
+
+
+def _pose_rows_mask():
+    model = _grid()
+    rows = torch.zeros((model.num_poses,))
+    rows[1::3] = 1.0
+    return grid_net_mask(model, features=False, stability=False, decoder=False, pose=True,
+                         pose_lr=0.5, pose_rows=rows)
+
+
+def _combined_mask():
+    model = _grid()
+    return base.tree_combine_masks(grid_net_mask(model, level=0, pose=False),
+                                   grid_net_mask(model, level=1, decoder=False, pose=False),
+                                   tree_zero_mask(model))
+
+
+# One case a mask function; every case but the first two leaves a name frozen.
+MASK_CASES = {
+    "grid_net_joint": lambda: grid_net_mask(_grid(), level=2),
+    "tree_full": lambda: base.tree_full_mask(_grid(), 0.5),
+    "grid_net_level0": lambda: grid_net_mask(_grid(), level=0, pose=False),
+    "grid_net_pose_rows": _pose_rows_mask,
+    "grid_net_frozen": lambda: grid_net_mask(_grid(), features=False, stability=False,
+                                             decoder=False, pose=False),
+    "grid_net_decoder_fixed": lambda: grid_net_mask(_grid(fix=True), level=1, pose=False),
+    "grid_net_vm": lambda: grid_net_mask(_vm_grid(), level=0, pose=False),
+    "grid_atlas": lambda: grid_atlas_mask(_atlas_params(), features=True, level=1,
+                                          submap_pose=True),
+    "grid_atlas_one_anchored_slot": lambda: grid_atlas_mask(_atlas_params().trim(1),
+                                                            decoder=True, submap_pose=True),
+    "tree_zero": lambda: base.tree_zero_mask(_grid()),
+    "tree_scale": lambda: base.tree_scale_mask(grid_net_mask(_grid(), level=1), 0.2),
+    "tree_scale_zero": lambda: base.tree_scale_mask(grid_net_mask(_grid(), level=1), 0.0),
+    "tree_combine": _combined_mask,
+}
+
+
+@pytest.mark.parametrize("case", sorted(MASK_CASES))
+def test_mask_builders_carry_their_trained_set(case):
+    mask = MASK_CASES[case]()
+    assert isinstance(mask, base.Mask)
+    nonzero = {k for k, m in mask.items() if torch.any(m != 0)}
+    assert mask.trained == nonzero
+    assert nonzero or case.endswith(("frozen", "zero"))
+    assert nonzero != set(mask) or case in list(MASK_CASES)[:2]
+
+
+def test_round_robin_pretraining_trains_the_same_leaves_and_reads_nothing(monkeypatch):
     from miso_tpu_torch.datasets.sdf_3d import Sdf3D
     from miso_tpu_torch.datasets.shapes import room_scene
     from miso_tpu_torch.native import TriangleMesh
     from miso_tpu_torch.training import train_decoder
 
-    steps = []
+    steps, seen = [], []
 
     def keep(loss_fn, optimizer="adam"):
-        steps.append(make_train_step(loss_fn, optimizer))
-        return steps[-1]
+        inner = make_train_step(loss_fn, optimizer)
+
+        def step(model, opt_state, batch, key, mask, lr):
+            nonzero = sorted(k for k, m in mask.items() if torch.any(m != 0))
+            seen.append((sorted(mask.trained), nonzero, len(mask)))
+            with monkeypatch.context() as mp:
+                _refuse_host_reads(mp)
+                return inner(model, opt_state, batch, key, mask, lr)
+
+        steps.append(inner)
+        return step
 
     monkeypatch.setattr(train_decoder, "make_train_step", keep)
     datasets = [Sdf3D(TriangleMesh(*room_scene(4.0 + s, seed=s)), batch_size=256,
                       total_samples=1024, trunc_dist=0.15) for s in range(2)]
     train_decoder.train_round_robin(datasets, 6, 0.15, device="cpu")
     (step,) = steps
-    assert step.mask_reads == len(train_decoder.STAGES) * len(datasets)
+    assert len(seen) == 6 * len(train_decoder.STAGES)
+    assert all(trained == nonzero and trained for trained, nonzero, _ in seen)
+    assert step.leaves_skipped == sum(n - len(trained) for trained, _, n in seen)
